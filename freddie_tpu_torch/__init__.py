@@ -3,15 +3,18 @@
 A port of ``freddie_tpu`` (JAX on a TPU) to one NVIDIA Hopper GPU. The
 JAX package stays the reference: this package imports its jax-free host
 code (I/O codec, thresholds, the float surface, the native C/C++ engines,
-the split/cluster/isoforms stages) and replaces only the modules that
-reach ``jax``:
+the split and isoforms stages, the cluster stage's preprocessing and
+exact solvers) and replaces only the modules that reach ``jax``:
 
 - ``ops.segdp``: batched segmentation DP dispatch, with the plain
   PyTorch twin of the XLA kernel;
-- ``ops.segdp_cuda`` + ``csrc/segdp.cu``: the hand-written CUDA kernel
-  that replaces the Pallas kernel (``freddie_tpu/ops/segdp_pallas.py``);
+- ``ops.segdp_cuda`` + ``csrc/segdp.cu``: the hand-written CUDA kernels
+  that replace the two Pallas kernels (``freddie_tpu/ops/segdp_pallas.py``);
 - ``ops.coverage``: coverage built on the device;
-- ``stages.segment`` / ``stages.pipeline``: the stages that route to them.
+- ``solver.segenum`` / ``solver.two_phase``: the cluster solver's wide
+  and closure rungs with their bounds in torch;
+- ``stages.segment`` / ``stages.cluster`` / ``stages.pipeline``: the
+  stages that route to them.
 
 Every device decision is explicit: functions take a ``device`` argument,
 CUDA tensors run the kernel, CPU tensors the plain version. This package

@@ -1,11 +1,12 @@
 """Command-line interface of the port.
 
 The JAX package's parser and subcommands, with ``--device {cuda,cpu}``
-(default ``cuda``) on ``segment`` and ``pipeline``, which run on this
-package; every other subcommand runs ``freddie_tpu`` as it is:
+(default ``cuda``) on ``segment``, ``cluster`` and ``pipeline``, which run
+on this package; every other subcommand runs ``freddie_tpu`` as it is:
 
     python -m freddie_tpu_torch.cli pipeline -b BAM -r READS... -o DIR [--device cuda]
     python -m freddie_tpu_torch.cli segment  -s SPLIT_DIR -o DIR [--device cuda]
+    python -m freddie_tpu_torch.cli cluster  -s SEGMENT_DIR -o DIR [--device cuda]
 """
 
 from __future__ import annotations
@@ -14,9 +15,9 @@ import argparse
 import sys
 
 from freddie_tpu import cli as jax_cli
-from freddie_tpu.config import PipelineConfig, SegmentConfig
+from freddie_tpu.config import ClusterConfig, PipelineConfig, SegmentConfig
 
-PORTED = ("segment", "pipeline")
+PORTED = ("segment", "cluster", "pipeline")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -26,8 +27,9 @@ def build_parser() -> argparse.ArgumentParser:
     for name in PORTED:
         sub.choices[name].add_argument(
             "--device", choices=["cuda", "cpu"], default="cuda",
-            help="where the segmentation DP runs (cuda: the hand-written "
-                 "kernel; cpu: its plain PyTorch version)",
+            help="where the segmentation DP and the cluster solver's "
+                 "bounds run (cuda: the card; cpu: the plain PyTorch "
+                 "versions on the host)",
         )
     return p
 
@@ -52,6 +54,23 @@ def main(argv=None) -> int:
         n = run_segment(args.split_dir.rstrip("/"), args.outdir.rstrip("/"), cfg,
                         device=args.device)
         print(f"[segment] {n} tints")
+    elif args.command == "cluster":
+        from .stages.cluster import run_cluster
+
+        cfg = ClusterConfig(
+            recycle_model=args.recycle_model,
+            gap_offset=args.gap_offset,
+            epsilon=args.epsilon,
+            max_rounds=args.max_rounds,
+            min_isoform_size=args.min_isoform_size,
+            max_ilp=args.max_ilp,
+            timeout=args.timeout,
+            threads=args.threads,
+            logs_dir=args.logs_dir,
+        )
+        n = run_cluster(args.segment_dir.rstrip("/"), args.outdir.rstrip("/"), cfg,
+                        device=args.device)
+        print(f"[cluster] {n} tints")
     else:
         from .stages.pipeline import run_pipeline
 

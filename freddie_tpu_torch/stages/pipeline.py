@@ -1,10 +1,10 @@
 """The end-to-end pipeline on PyTorch: split -> segment -> cluster -> isoforms.
 
 Port of ``freddie_tpu/stages/pipeline.py`` with the same stage, resume
-and protect semantics (the reference Snakefile's checkpoints). Split,
-cluster and isoforms are the JAX package's host stages, called
-unchanged; segment is this package's own stage, whose DP runs on
-``device``.
+and protect semantics (the reference Snakefile's checkpoints). Split and
+isoforms are the JAX package's host stages, called unchanged; segment
+and cluster are this package's own stages, whose DP and solver bounds
+run on ``device``.
 """
 
 from __future__ import annotations
@@ -13,12 +13,12 @@ import os
 import shutil
 
 from freddie_tpu.config import PipelineConfig
-from freddie_tpu.stages.cluster import run_cluster
 from freddie_tpu.stages.isoforms import run_isoforms
 from freddie_tpu.stages.split import run_split
 from freddie_tpu.utils.fsio import is_complete, mark_complete, protect_outputs, set_writable
 from freddie_tpu.utils.metrics import StageMetrics
 
+from .cluster import run_cluster
 from .segment import run_segment
 
 
@@ -47,7 +47,7 @@ def run_pipeline(
     incremental ones (segment, cluster) in place over a crashed run's
     partial output; protect=True makes each completed stage's outputs
     read-only. ``device`` ('cuda' or 'cpu') is where the segment DP
-    runs."""
+    and the cluster solver's device bounds run."""
     cfg = cfg or PipelineConfig()
     os.makedirs(outdir, exist_ok=True)
     split_dir = os.path.join(outdir, "split")
@@ -95,7 +95,7 @@ def run_pipeline(
           lambda: run_segment(split_dir, segment_dir, cfg.segment, device=device),
           incremental=True)
     stage("cluster", cluster_dir,
-          lambda: run_cluster(segment_dir, cluster_dir, cfg.cluster),
+          lambda: run_cluster(segment_dir, cluster_dir, cfg.cluster, device=device),
           incremental=True)
     stage("isoforms", gtf_path,
           lambda: run_isoforms(split_dir, cluster_dir, gtf_path, cfg.isoforms))

@@ -3,8 +3,10 @@
 // without a GPU (tests/test_torch_segdp_emulated.py).
 //
 // One std::thread per CUDA thread; __syncthreads is a block-wide
-// std::barrier; __shfl_xor_sync exchanges through per-warp slots between
-// two warp barriers. Blocks run one after another, so function-static
+// std::barrier; a named barrier (group_sync, PTX bar.sync id, n) is one
+// std::barrier per (id, thread count); __shfl_xor_sync exchanges through
+// per-warp slots between two warp barriers. Blocks run one after another,
+// so function-static
 // arrays (what __shared__ becomes here) serve as shared memory, and the
 // dynamic shared memory is one global buffer filled with garbage before
 // every block, as the card leaves it.
@@ -13,9 +15,14 @@
 #include <barrier>
 #include <cmath>
 #include <cstring>
+#include <map>
 #include <memory>
+#include <mutex>
 #include <thread>
+#include <utility>
 #include <vector>
+
+#define CUDA_EMU 1
 
 #define __global__
 #define __device__
@@ -47,6 +54,22 @@ inline EmuWarp emu_warps[32];
 
 inline void __syncthreads() { emu_block_bar->arrive_and_wait(); }
 
+inline std::mutex emu_named_mu;
+inline std::map<std::pair<int, int>, std::unique_ptr<std::barrier<>>> emu_named;
+
+// bar.sync id, nthreads: waits until nthreads threads have arrived at
+// barrier id. The map is cleared before each launch.
+inline void group_sync(int id, int nthreads) {
+  std::barrier<>* bar;
+  {
+    std::lock_guard<std::mutex> lock(emu_named_mu);
+    auto& slot = emu_named[{id, nthreads}];
+    if (!slot) slot = std::make_unique<std::barrier<>>(nthreads);
+    bar = slot.get();
+  }
+  bar->arrive_and_wait();
+}
+
 template <class T>
 T __shfl_xor_sync(unsigned, T v, int lane_mask) {
   const int tid = threadIdx.x;
@@ -70,6 +93,7 @@ void emu_launch(dim3 grid, int threads, F body) {
   gridDim = grid;
   blockDim = dim3(threads);
   emu_block_bar = std::make_unique<std::barrier<>>(threads);
+  emu_named.clear();
   for (int w = 0; w < threads / 32; ++w)
     emu_warps[w].bar = std::make_unique<std::barrier<>>(32);
   std::vector<std::thread> ts;

@@ -177,5 +177,6 @@ def test_cli_device_flag():
     assert p.parse_args(["segment", "-s", "x"]).device == "cuda"
     assert p.parse_args(["pipeline", "-b", "b", "-r", "r", "-o", "o",
                          "--device", "cpu"]).device == "cpu"
+    assert p.parse_args(["cluster", "-s", "x", "--device", "cpu"]).device == "cpu"
     with pytest.raises(SystemExit):
-        p.parse_args(["cluster", "-s", "x", "--device", "cpu"])
+        p.parse_args(["isoforms", "-s", "x", "-c", "y", "--device", "cpu"])

@@ -49,6 +49,33 @@ def test_plain_matches_xla_and_pallas(wide):
     assert (bjt >= 0).any(), "fixture should segment at least one problem"
 
 
+@pytest.mark.parametrize("wide", [False, True])
+def test_pipelined_entry_matches_pallas_pipelined(wide):
+    """solve_batch_cuda(pipelined=True) on CPU tensors (the plain version
+    beside K2) == solve_batch_pallas(pipelined=True) and the standard
+    Pallas kernel, on the inputs of tests/test_segdp.py's pipelined test."""
+    from freddie_tpu_torch.ops.segdp_cuda import solve_batch_cuda
+
+    rng = np.random.default_rng(23 if wide else 29)
+    thr = ScaledThresholds(0.9)
+    C, y, W, n_cand = _padded_batch(rng, 5, 16, 128, wide)
+    P = C.shape[1]
+    lookup = jnp.asarray(thr.lookup)
+    args = (jnp.asarray(C), jnp.asarray(y), jnp.asarray(W), jnp.asarray(n_cand))
+    want = [solve_batch_pallas(*args, 3, lookup, thr.scale, interpret=True,
+                               wide_weights=wide, pipelined=pipe)
+            for pipe in (True, False)]
+    Kt, bjt, bkt = solve_batch_cuda(
+        torch.from_numpy(C), torch.from_numpy(y), torch.from_numpy(W),
+        torch.from_numpy(n_cand), 3, torch.from_numpy(thr.lookup), thr.scale,
+        wide_weights=wide, pipelined=True)
+    for Kp, bjp, bkp in want:
+        np.testing.assert_array_equal(np.asarray(bjp), bjt.numpy())
+        np.testing.assert_array_equal(np.asarray(bkp), bkt.numpy())
+        np.testing.assert_array_equal(np.asarray(Kp)[:, : P - 1], Kt.numpy()[:, : P - 1])
+    assert (bjt >= 0).any(), "fixture should segment at least one problem"
+
+
 def test_plain_exact_under_reduced_precision_matmul():
     """The 7-bit weight limbs keep the contraction exact whatever the f32
     matmul precision setting allows."""

@@ -72,6 +72,35 @@ def test_kernel_matches_plain(cuda_device, P, R, wide):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("wide", [False, True])
+@pytest.mark.parametrize("B,P,R", [(8, 16, 128), (8, 40, 100), (8, 64, 512), (3, 96, 256),
+                                   (1, 32, 512), (401, 16, 128)])
+def test_pipelined_kernel_matches_k1_and_plain(cuda_device, B, P, R, wide):
+    """solve_batch_cuda(pipelined=True) runs K2 in one launch and equals K1
+    and _solve_batch_torch: K rows 0..P-2, best_j, best_k bit-equal, K's
+    last row (best_j, best_k). B=1 is one block with one problem; B=401
+    has blocks that own two problems or more."""
+    from freddie_tpu_torch.ops import segdp_cuda
+
+    rng = np.random.default_rng(B + P + R + wide)
+    thr = ScaledThresholds(0.9)
+    C, y, W, n_cand = padded_batch(rng, B, P, R, wide)
+    t = tseg.to_device(dict(C=C, y=y, W=W, n_cand=n_cand), cuda_device)
+    lookup = torch.from_numpy(thr.lookup).to(cuda_device)
+    args = (t["C"], t["y"], t["W"], t["n_cand"], 3, lookup, thr.scale)
+    before = (segdp_cuda.LAUNCHES, segdp_cuda.PIPELINED_LAUNCHES)
+    K2, bj2, bk2 = segdp_cuda.solve_batch_cuda(*args, wide_weights=wide, pipelined=True)
+    assert (segdp_cuda.LAUNCHES, segdp_cuda.PIPELINED_LAUNCHES) == (before[0], before[1] + 1)
+    K1, bj1, bk1 = segdp_cuda.solve_batch_cuda(*args, wide_weights=wide)
+    Kt, bjt, bkt = tseg._solve_batch_torch(*args)
+    torch.cuda.synchronize()
+    for Kr, bjr, bkr in ((K1, bj1, bk1), (Kt, bjt, bkt)):
+        assert torch.equal(bj2, bjr) and torch.equal(bk2, bkr)
+        assert torch.equal(K2[:, : P - 1], Kr[:, : P - 1])
+    assert torch.equal(K2[:, P - 1, 0], bj2) and torch.equal(K2[:, P - 1, 1], bk2)
+
+
+@pytest.mark.cuda
 def test_dispatch_on_card_matches_host(cuda_device):
     """The whole dispatch on the card (padding, int16 transfer, kernel,
     chain walk, pinned readback) against the host oracle."""
@@ -98,5 +127,7 @@ def test_wrapper_rejects_bad_input(cuda_device):
     with pytest.raises(TypeError):
         segdp_cuda.solve_batch_cuda(C64, y, W, n, 3, lookup, thr.scale)
     C = torch.zeros((2, 16, 128), dtype=torch.int32, device=cuda_device)
-    with pytest.raises(ValueError):
-        segdp_cuda.solve_batch_cuda(C, y.cpu(), W, n, 3, lookup, thr.scale)
+    for pipelined in (False, True):
+        with pytest.raises(ValueError):
+            segdp_cuda.solve_batch_cuda(C, y.cpu(), W, n, 3, lookup, thr.scale,
+                                        pipelined=pipelined)

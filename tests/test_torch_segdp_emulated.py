@@ -3,8 +3,10 @@
 There is no GPU or nvcc here, so ``freddie_tpu_torch/csrc/segdp_kernels.cuh``
 is compiled by the host C++ compiler against a thread-per-CUDA-thread
 stand-in (``tests/cuda_emu/emu.h``) and run at small shapes, including a
-ragged P and R and the multi-tile (P > 64) path. It checks the kernels'
-indexing, masks, reductions and tie order, not their speed or anything
+ragged P and R and the multi-tile (P > 64) path: K1's two launches, and
+K2's one warp-specialised launch at grid sizes where a block owns one
+problem, several, or all of them. It checks the kernels' indexing,
+masks, reductions, tie order and barriers, not their speed or anything
 the GPU compiler decides; ``tests/test_torch_segdp_cuda.py`` and
 ``chip_smoke.py`` check the real build on the card. Zero tolerance.
 """
@@ -45,13 +47,9 @@ def emulator(tmp_path_factory):
     return exe
 
 
-@pytest.mark.parametrize("B,P,R,wide,full", [
-    (3, 16, 128, False, False),
-    (3, 16, 128, True, False),
-    (2, 40, 100, True, False),  # ragged tile rows and rep stages
-    (1, 72, 40, False, True),  # two output tiles per side
-])
-def test_emulated_kernels_match_plain(emulator, tmp_path, B, P, R, wide, full):
+def _run_and_check(emulator, tmp_path, B, P, R, wide, full, grid=()):
+    """Runs the emulated kernels on a random padded batch (K2 when
+    ``grid`` holds G) and holds them against _solve_batch_torch."""
     rng = np.random.default_rng(P * 7 + R + wide)
     thr = ScaledThresholds(0.9)
     C, y, W, n_cand = padded_batch(rng, B, P, R, wide)
@@ -64,8 +62,8 @@ def test_emulated_kernels_match_plain(emulator, tmp_path, B, P, R, wide, full):
                   wsum=Wi.sum(1), y=y, n=n_cand)
     for name, a in inputs.items():
         np.ascontiguousarray(a, dtype=np.int32).tofile(tmp_path / f"{name}.bin")
-    subprocess.run([str(emulator), str(B), str(P), str(R), "3"], cwd=tmp_path,
-                   check=True, capture_output=True, timeout=300)
+    subprocess.run([str(emulator), str(B), str(P), str(R), "3", *map(str, grid)],
+                   cwd=tmp_path, check=True, capture_output=True, timeout=300)
     K = np.fromfile(tmp_path / "K.bin", np.int32).reshape(B, P, P)
     bj = np.fromfile(tmp_path / "bj.bin", np.int32)
     bk = np.fromfile(tmp_path / "bk.bin", np.int32)
@@ -76,3 +74,25 @@ def test_emulated_kernels_match_plain(emulator, tmp_path, B, P, R, wide, full):
     np.testing.assert_array_equal(bk, bkt.numpy())
     np.testing.assert_array_equal(K[:, : P - 1], Kt.numpy()[:, : P - 1])
     np.testing.assert_array_equal(K[:, P - 1, :2], np.stack([bj, bk], 1))
+
+
+@pytest.mark.parametrize("B,P,R,wide,full", [
+    (3, 16, 128, False, False),
+    (3, 16, 128, True, False),
+    (2, 40, 100, True, False),  # ragged tile rows and rep stages
+    (1, 72, 40, False, True),  # two output tiles per side
+])
+def test_emulated_kernels_match_plain(emulator, tmp_path, B, P, R, wide, full):
+    _run_and_check(emulator, tmp_path, B, P, R, wide, full)
+
+
+@pytest.mark.parametrize("B,P,R,wide,full,G", [
+    (5, 16, 128, False, False, 1),  # one block owns every problem
+    (5, 16, 128, True, False, 2),  # blocks own 3 and 2 problems
+    (5, 16, 128, False, False, 5),  # one problem a block: no overlap
+    (3, 40, 100, True, False, 2),
+    (2, 72, 40, False, True, 1),
+])
+def test_emulated_pipelined_kernel_matches_plain(emulator, tmp_path, B, P, R, wide,
+                                                 full, G):
+    _run_and_check(emulator, tmp_path, B, P, R, wide, full, grid=(G,))
