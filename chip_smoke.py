@@ -18,9 +18,20 @@ on the card:
 4. drives the port's whole pipeline (split -> segment -> cluster ->
    isoforms) over the 25,920-read benchmark corpus and checks that the
    DP really ran in K1, that the segment TSVs equal the host-oracle
-   route's byte for byte, and how many simulated isoforms came back.
+   route's byte for byte, and how many simulated isoforms came back;
+5. holds the batched polyA scan on the card against the numpy twin and
+   the C scorer window by window, times it against the C scorer, and
+   runs the segment stage with the batched route forced (Python phase
+   A path), byte-identical to the host-oracle route;
+6. runs the loci mesh on one card (the card listed as four or three
+   shards): bit-equal to one K1 launch, and the production dispatch
+   equal to the host oracle at B=5 and at the stage's buckets;
+7. runs the distributed pipeline in two gloo processes on card 0 and
+   the ``workflow`` CLI, each byte-identical to the pipeline of 4.
 
-No phase imports JAX. Details go to earlier lines; the line before the
+K1's launch count in the kernel table sums the runs of 4-7, each read
+with the count set to zero just before it; the line before the card's
+name gives each path's own count. No phase imports JAX. Details go to earlier lines; the line before the
 last is the kernel table as JSON, the last line ``{"ok": true,
 "device": {...}}``. Any failure raises and exits non-zero without that
 line; so does a machine with no GPU.
@@ -40,15 +51,6 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
-# The benchmark corpus (bench.py): 96 genes x 3 isoforms x 90 reads,
-# noisy. Its 96 tints pass the device-coverage gate (64), so the stage's
-# coverage build on the device and the kernel both run.
-SIM = dict(
-    seed=9001, n_genes=96, isoforms_per_gene=3, reads_per_isoform=90,
-    minus_strand_genes=True, truncate_prob=0.2, tail_prob=0.8,
-    end_jitter=25, indel_rate=0.1, alt_splice=True, junction_jitter=6,
-    big_del_rate=0.06,
-)
 # (B, P, R): the segment stage's full chunk at the (P, R) buckets
 # (16, 128), (32, 512), (64, 512) -- min(suggested_batch_size, 512)
 # rounded down to a power of two -- then the three launches the stage
@@ -149,9 +151,8 @@ def kernel_phase(dev, card) -> dict:
         t = to_device(synthetic_batch(rng, B, P, R, wide), dev)
         args = (t["C"], t["y"], t["W"], t["n_cand"], 3, lookup, thr.scale)
         got = {
-            "segdp": segdp_cuda.solve_batch_cuda(*args, wide_weights=wide),
-            "segdp_pipelined": segdp_cuda.solve_batch_cuda(*args, wide_weights=wide,
-                                                           pipelined=True),
+            "segdp": segdp_cuda.solve_batch_cuda(*args),
+            "segdp_pipelined": segdp_cuda.solve_batch_cuda(*args, pipelined=True),
         }
         plain = []
         for tf32 in (False, True):
@@ -174,9 +175,8 @@ def kernel_phase(dev, card) -> dict:
         if max_abs_diff(got["segdp_pipelined"], got["segdp"], P) != 0:
             raise RuntimeError(f"K2 != K1 {where}")
         n_seg = int((got["segdp"][1] >= 0).sum())
-        k1_ms = time_ms(lambda: segdp_cuda.solve_batch_cuda(*args, wide_weights=wide))
-        k2_ms = time_ms(lambda: segdp_cuda.solve_batch_cuda(*args, wide_weights=wide,
-                                                            pipelined=True))
+        k1_ms = time_ms(lambda: segdp_cuda.solve_batch_cuda(*args))
+        k2_ms = time_ms(lambda: segdp_cuda.solve_batch_cuda(*args, pipelined=True))
         p_ms = time_ms(lambda: _solve_batch_torch(*args))
         times[(B, P, R, wide)] = (k1_ms, k2_ms, p_ms)
         log(f"[kernel] B={B} P={P} R={R} wide={wide} (K2 grid "
@@ -370,6 +370,8 @@ def recovery(gtf: str, truth) -> tuple[int, int]:
     """Truth isoforms recovered, by bench.py's criterion: a reported
     transcript with the same exon count, internal boundaries within
     2*junction_jitter+2 and ends within end_jitter+15."""
+    from freddie_tpu_torch.utils.sim import BENCH_CORPUS as SIM
+
     got: dict[str, list] = {}
     with open(gtf) as f:
         for line in f:
@@ -403,17 +405,17 @@ def tsv_tree(root: str) -> list[str]:
 
 def pipeline_phase(dev, workdir: str) -> int:
     """The port's pipeline on the card over the benchmark corpus; returns
-    the K1 launches it made."""
+    the K1 launches it made and where its inputs and outputs are."""
     import torch
 
     from freddie_tpu_torch.config import PipelineConfig, SegmentConfig
     from freddie_tpu_torch.ops import segdp_cuda
     from freddie_tpu_torch.stages.pipeline import run_pipeline
     from freddie_tpu_torch.stages.segment import run_segment
-    from freddie_tpu_torch.utils.sim import simulate
+    from freddie_tpu_torch.utils.sim import BENCH_CORPUS, simulate
 
     t0 = time.perf_counter()
-    sim = simulate(**SIM)
+    sim = simulate(**BENCH_CORPUS)
     bam, fq = os.path.join(workdir, "reads.bam"), os.path.join(workdir, "reads.fastq")
     sim.write_bam(bam)
     sim.write_fastq(fq)
@@ -467,6 +469,313 @@ def pipeline_phase(dev, workdir: str) -> int:
         raise RuntimeError("the pipeline reported no transcripts")
     log(f"[pipeline] recovery {matched}/{len(truth)} = {matched / len(truth):.3f} "
         f"of simulated isoforms ({reported} transcripts reported)")
+    return launches, dict(bam=bam, fq=fq, out=out, host_segment=host_dir)
+
+
+def polya_windows(rng, n: int):
+    """n soft-clip-like windows and their scan chars: random bases with up
+    to three runs of 15-60 of the char (10% noise), of lengths 0 to 1.25
+    MAX_WINDOW, the bucket edges and MAX_WINDOW + 1 among them."""
+    import numpy as np
+
+    from freddie_tpu.ops.polya_batch import MAX_WINDOW
+
+    bases = np.array(list("ACGT"))
+    edges = [0, 1, 20, 64, 65, MAX_WINDOW - 1, MAX_WINDOW, MAX_WINDOW + 1]
+    windows, chars = [], []
+    for i in range(n):
+        L = edges[i] if i < len(edges) else int(rng.integers(0, MAX_WINDOW * 5 // 4 + 1))
+        c = "A" if rng.random() < 0.5 else "T"
+        w = bases[rng.integers(0, 4, size=L)]
+        for _ in range(int(rng.integers(0, 4))):
+            lo = int(rng.integers(0, max(L, 1)))
+            hi = min(L, lo + int(rng.integers(15, 61)))
+            w[lo:hi] = np.where(rng.random(hi - lo) < 0.1, w[lo:hi], c)
+        windows.append("".join(w))
+        chars.append(c)
+    return windows, chars
+
+
+def polya_phase(dev, card, run: dict, workdir: str) -> int:
+    """The port's batched polyA scan on the card: equal to the numpy twin
+    (_scan_np) and the C scorer on every window, timed against the C
+    scorer; then the segment stage with the Python phase A path and the
+    batched route forced over the benchmark corpus, whose TSVs must equal
+    the host-oracle route's. Returns the K1 launches of that run."""
+    import numpy as np
+    import torch
+
+    from freddie_tpu.ops.polya import _load_ctok
+    from freddie_tpu.ops.polya_batch import MAX_WINDOW, _scan_np
+    from freddie_tpu_torch.config import SegmentConfig
+    from freddie_tpu_torch.ops import polya_batch as tpb
+    from freddie_tpu_torch.ops import segdp_cuda
+    from freddie_tpu_torch.stages.segment import run_segment
+
+    ctok = _load_ctok()
+    if ctok is None or not hasattr(ctok, "best_run"):
+        raise RuntimeError("the C polyA scorer (native/polyatok.c) did not build")
+    windows, chars = polya_windows(np.random.default_rng(5), 40_000)
+    lens = np.array([len(w) for w in windows], dtype=np.int32)
+    Lmax = int(lens.max())
+    grid = np.zeros((len(windows), Lmax), dtype=np.uint8)
+    grid[np.arange(Lmax)[None, :] < lens[:, None]] = np.frombuffer(
+        "".join(windows).encode(), dtype=np.uint8)
+    found, first, length, cnt = _scan_np(grid == np.array([[ord(c)] for c in chars],
+                                                          dtype=np.uint8), lens)
+    twin = [(int(f), int(n), int(k)) if ok else None
+            for ok, f, n, k in zip(found, first, length, cnt)]
+    scans = tpb.SCANS
+    got = tpb.best_poly_batch(windows, chars, dev)
+    torch.cuda.synchronize()
+    if tpb.SCANS == scans:
+        raise RuntimeError("best_poly_batch made no scan on the card")
+    c_res = [ctok.best_run(w, 0, len(w), 0, c) for w, c in zip(windows, chars)]
+    bad = [i for i in range(len(windows)) if not got[i] == twin[i] == c_res[i]]
+    if bad:
+        i = bad[0]
+        raise RuntimeError(f"best_poly_batch disagrees on {len(bad)} windows, e.g. length "
+                           f"{len(windows[i])}: card {got[i]}, numpy {twin[i]}, C {c_res[i]}")
+    short = [i for i in range(len(windows)) if len(windows[i]) <= MAX_WINDOW]
+    sw, sc = [windows[i] for i in short], [chars[i] for i in short]
+    card_s, c_s = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        tpb.best_poly_batch(sw, sc, dev)
+        card_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        for w, c in zip(sw, sc):
+            ctok.best_run(w, 0, len(w), 0, c)
+        c_s.append(time.perf_counter() - t0)
+    log(f"[polya] best_poly_batch on the card equal to _scan_np and the C scorer on "
+        f"{len(windows)} windows of length 0..{Lmax} ({sum(r is not None for r in got)} "
+        f"runs found, {len(windows) - len(short)} past MAX_WINDOW={MAX_WINDOW} on the host); "
+        f"{len(short)} windows <= MAX_WINDOW: card {min(card_s) * 1e3:.3f} ms (host clock, "
+        f"packing, transfers and readback included; min of 3), C scorer "
+        f"{min(c_s) * 1e3:.3f} ms, on {card}")
+
+    forced = {"FREDDIE_SEGCORE": "0", "FREDDIE_POLYA_DEVICE": "1"}
+    saved = {k: os.environ.get(k) for k in forced}
+    out = os.path.join(workdir, "segment_polya")
+    os.environ.update(forced)
+    try:
+        segdp_cuda.LAUNCHES = 0
+        scans = tpb.SCANS
+        t0 = time.perf_counter()
+        run_segment(os.path.join(run["out"], "split"), out, SegmentConfig(), device=dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches, scans = segdp_cuda.LAUNCHES, tpb.SCANS - scans
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    if scans <= 0 or launches <= 0:
+        raise RuntimeError(f"forced polyA segment run: {scans} scans, {launches} K1 launches")
+    names = same_tsvs(out, run["host_segment"], "forced polyA segment run")
+    log(f"[polya] segment with FREDDIE_SEGCORE=0 FREDDIE_POLYA_DEVICE=1: {secs:.3f} s, "
+        f"{scans} polyA scans and {launches} K1 launches on the card; {len(names)} segment "
+        f"TSVs byte-identical to the host-oracle route, on {card}")
+    return launches
+
+
+def same_tsvs(a: str, b: str, what: str) -> list[str]:
+    """The TSV names under a and b, after checking they are the same set,
+    byte for byte."""
+    names = tsv_tree(a)
+    if not names or names != tsv_tree(b):
+        raise RuntimeError(f"{what}: TSV sets differ ({len(names)} vs {len(tsv_tree(b))})")
+    differ = [n for n in names if not filecmp.cmp(os.path.join(a, n), os.path.join(b, n),
+                                                  shallow=False)]
+    if differ:
+        raise RuntimeError(f"{what}: TSVs differ: {differ[:5]}")
+    return names
+
+
+def mesh_phase(dev, card) -> int:
+    """The loci mesh on one card, as ``__graft_entry__.py:dryrun_multichip``
+    runs it on a CPU mesh: solve_batch_sharded over the card listed four
+    times (a stream per shard) bit-equal to one K1 launch; the production
+    dispatch with loci_devices patched to four and to three shards (which
+    pads the batch of 8 to 9) at B=5 and at the stage's (P, R) buckets
+    equal to solve_host; over the real cards too when there are several.
+    Returns the dispatches' K1 launches."""
+    import numpy as np
+    import torch
+
+    from freddie_tpu_torch.ops import segdp_cuda
+    from freddie_tpu_torch.ops.segdp import (
+        DPProblem, ScaledThresholds, solve_batch_device, solve_host, to_device)
+    from freddie_tpu_torch.parallel import mesh
+
+    thr = ScaledThresholds(0.9)
+    rng = np.random.default_rng(11)
+    shards = [dev] * 4
+    batch = synthetic_batch(rng, 256, 32, 512, False)
+    args = (batch["C"], batch["y"], batch["W"], batch["n_cand"], 3, thr.lookup, thr.scale)
+    t0 = time.perf_counter()
+    got = mesh.solve_batch_sharded(*args, shards)
+    sh_s = time.perf_counter() - t0
+    t = to_device(batch, dev)
+    want = segdp_cuda.solve_batch_cuda(t["C"], t["y"], t["W"], t["n_cand"], 3,
+                                       torch.from_numpy(thr.lookup).to(dev), thr.scale)
+    if not all(np.array_equal(g, w.cpu().numpy()) for g, w in zip(got, want)):
+        raise RuntimeError("solve_batch_sharded over 4 shards != one K1 launch")
+    log(f"[mesh] solve_batch_sharded over {len(shards)} shards of {dev} at B,P,R=256,32,512: "
+        f"bit-equal to one K1 launch ({sh_s * 1e3:.3f} ms, host clock incl. transfers, "
+        f"first call), on {card}")
+
+    def problem(P, R):
+        inc = rng.integers(0, 6, size=(P, R))
+        inc[rng.random(size=(P, R)) < 0.5] = 0
+        y = np.sort(rng.integers(1, 20_000, size=P)).astype(np.int64)
+        y[0] = 0
+        return DPProblem(C=np.cumsum(inc, axis=0).astype(np.int64), y=y,
+                         W=rng.integers(1, 5, size=R).astype(np.int64), read_support=3)
+
+    cases = [("B=5", [problem(int(rng.integers(3, 30)), int(rng.integers(1, 40)))
+                      for _ in range(5)], 8, 128)]
+    cases += [(f"bucket ({P},{R})", [problem(P, R) for _ in range(5)], P, R)
+              for P, R in ((64, 512), (32, 512), (16, 128))]
+    want = [[solve_host(p, thr) for p in problems] for _what, problems, _P, _R in cases]
+    # 4 shards split the padded batch of 8 evenly; 3 pad it to 9. The
+    # work gate is at zero: these batches are far below it.
+    layouts = [("4 shards of one card", shards), ("3 shards of one card", [dev] * 3)]
+    if torch.cuda.device_count() > 1:
+        layouts.append((f"the {torch.cuda.device_count()} cards", None))
+    real, gate = mesh.loci_devices, mesh.MESH_MIN_WORK
+    segdp_cuda.LAUNCHES = 0
+    mesh.MESH_MIN_WORK = 0
+    try:
+        for name, devices in layouts:
+            if devices is not None:
+                mesh.loci_devices = lambda d=devices: d
+            for (what, problems, P, R), w in zip(cases, want):
+                got = solve_batch_device(problems, thr, pad_p_to=P, pad_r_to=R, device="cuda")
+                if got != w:
+                    raise RuntimeError(f"the dispatch over {name} != solve_host at {what}")
+            mesh.loci_devices = real
+            log(f"[mesh] dispatch over {name}: equal to solve_host at "
+                f"{', '.join(c[0] for c in cases)}")
+    finally:
+        mesh.loci_devices, mesh.MESH_MIN_WORK = real, gate
+    torch.cuda.synchronize()
+    launches = segdp_cuda.LAUNCHES
+    if launches < 7 * len(cases):
+        raise RuntimeError(f"the mesh dispatch made {launches} K1 launches")
+    return launches
+
+
+WORKER = """
+import json, sys
+from freddie_tpu_torch.ops import segdp_cuda
+from freddie_tpu_torch.parallel import dist
+rank, world = dist.initialize("127.0.0.1:" + sys.argv[1], 2, int(sys.argv[2]), timeout=600)
+merged = dist.run_pipeline_distributed(sys.argv[3], [sys.argv[4]], sys.argv[5],
+                                       device=sys.argv[6])
+dist.dist.destroy_process_group()
+print("RESULT " + json.dumps({"rank": rank, "records": len(merged),
+                              "device": dist.rank_device(sys.argv[6], rank),
+                              "launches": segdp_cuda.LAUNCHES, "jax": "jax" in sys.modules}))
+"""
+
+# The port's CLI entry (what `python -m freddie_tpu_torch.cli` runs), then
+# the K1 launches it made.
+CLI = """
+import sys
+from freddie_tpu_torch import cli
+from freddie_tpu_torch.ops import segdp_cuda
+rc = cli.main(sys.argv[1:])
+print("LAUNCHES", segdp_cuda.LAUNCHES, "jax" in sys.modules)
+sys.exit(rc)
+"""
+
+
+def run_procs(cmds: list[list[str]], timeout: float) -> list[str]:
+    """Run the commands at once from the repo root; their stdouts. Every
+    process is killed if one outlasts ``timeout``; any failure raises."""
+    procs = [subprocess.Popen(c, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for c in cmds]
+    try:
+        outs = [p.communicate(timeout=timeout) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for p, (out, err) in zip(procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"{p.args[:4]} exited {p.returncode}:\n{out[-2000:]}\n{err[-3000:]}")
+    return [out for out, _err in outs]
+
+
+def same_run(a: str, b: str, what: str) -> None:
+    """a's GTF and segment and cluster TSVs equal b's, byte for byte."""
+    if not filecmp.cmp(os.path.join(a, "isoforms.gtf"), os.path.join(b, "isoforms.gtf"),
+                       shallow=False):
+        raise RuntimeError(f"{what}: the GTF differs from the single-process pipeline's")
+    for stage in ("segment", "cluster"):
+        same_tsvs(os.path.join(a, stage), os.path.join(b, stage), f"{what}, {stage}")
+
+
+def dist_phase(device: str, card, run: dict, workdir: str) -> int:
+    """Two processes in a gloo group on localhost, on card ``rank % count``
+    of ``device`` ("cuda"; card 0 for both on one card), run
+    run_pipeline_distributed over the benchmark corpus; the merged GTF and
+    every segment and cluster TSV must equal the single-process run's.
+    Returns the K1 launches of both ranks."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = str(s.getsockname()[1])
+    out = os.path.join(workdir, "dist")
+    t0 = time.perf_counter()
+    outs = run_procs([[sys.executable, "-c", WORKER, port, str(r), run["bam"], run["fq"], out,
+                       device] for r in range(2)], timeout=600)
+    wall = time.perf_counter() - t0
+    res = [json.loads(ln[len("RESULT "):]) for o in outs for ln in o.splitlines()
+           if ln.startswith("RESULT ")]
+    if len(res) != 2 or len({r["records"] for r in res}) != 1 or any(r["jax"] for r in res):
+        raise RuntimeError(f"distributed ranks reported {res}")
+    same_run(out, run["out"], "distributed pipeline")
+    launches = sum(r["launches"] for r in res)
+    if launches <= 0:
+        raise RuntimeError("the distributed ranks never launched K1")
+    log(f"[dist] 2 ranks (gloo, on {[r['device'] for r in res]}): {res[0]['records']} "
+        f"merged records, GTF "
+        f"and every segment and cluster TSV byte-identical to the single-process run; "
+        f"K1 launches by rank {[r['launches'] for r in res]}; wall {wall:.3f} s "
+        f"(process start included), on {card}")
+    return launches
+
+
+def workflow_phase(device: str, card, run: dict, workdir: str) -> int:
+    """``freddie_tpu_torch.cli workflow --device <device>`` on a one-sample
+    config over the benchmark BAM; its GTF must equal the pipeline's.
+    Returns its K1 launches."""
+    cfg = os.path.join(workdir, "wf.yaml")
+    out = os.path.join(workdir, "wf")
+    with open(cfg, "w") as f:
+        f.write(f"outpath: {out}\nsamples:\n  S1:\n    bam: {run['bam']}\n"
+                f"    reads: [{run['fq']}]\n")
+    t0 = time.perf_counter()
+    (stdout,) = run_procs([[sys.executable, "-c", CLI, "workflow", cfg, "--device", device]],
+                          timeout=600)
+    wall = time.perf_counter() - t0
+    tail = [ln.split() for ln in stdout.splitlines() if ln.startswith("LAUNCHES ")]
+    if not tail or tail[-1][2] != "False":
+        raise RuntimeError(f"the workflow CLI did not report its launches, or imported jax: {tail}")
+    launches = int(tail[-1][1])
+    if launches <= 0:
+        raise RuntimeError("the workflow never launched K1")
+    if not filecmp.cmp(os.path.join(out, "results", "S1", "isoforms.gtf"),
+                       os.path.join(run["out"], "isoforms.gtf"), shallow=False):
+        raise RuntimeError("the workflow's GTF differs from the pipeline's")
+    log(f"[workflow] cli workflow --device {device}: GTF byte-identical to the pipeline's, "
+        f"{launches} K1 launches; wall {wall:.3f} s (process start included), on {card}")
     return launches
 
 
@@ -495,13 +804,22 @@ def main() -> int:
     pipe_launches = pipelined_path(dev, card)
     cluster_phase(dev, card)
     workdir = tempfile.mkdtemp(prefix=".chip_smoke-", dir=REPO)
+    by_path = {}
     try:
-        launches = pipeline_phase(dev, workdir)
+        by_path["pipeline"], run = pipeline_phase(dev, workdir)
+        by_path["polya"] = polya_phase(dev, card, run, workdir)
+        by_path["mesh"] = mesh_phase(dev, card)
+        by_path["dist"] = dist_phase(dev.type, card, run, workdir)
+        by_path["workflow"] = workflow_phase(dev.type, card, run, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    if "jax" in sys.modules:
+        raise RuntimeError("jax was imported")
 
+    log(f"[kernels] segdp (K1) launches by path: {json.dumps(by_path)}; "
+        f"segdp_pipelined (K2): {json.dumps({'pipelined': pipe_launches})}")
     log(card)
-    rows = [("segdp", "freddie_tpu/ops/segdp_pallas.py:65", launches),
+    rows = [("segdp", "freddie_tpu/ops/segdp_pallas.py:65", sum(by_path.values())),
             ("segdp_pipelined", "freddie_tpu/ops/segdp_pallas.py:445", pipe_launches)]
     log(json.dumps({"kernels": [{
         "name": name,

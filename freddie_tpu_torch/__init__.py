@@ -1,6 +1,6 @@
 """freddie_tpu_torch: the freddie-tpu pipeline on PyTorch and CUDA.
 
-A port of ``freddie_tpu`` (JAX on a TPU) to one NVIDIA Hopper GPU. The
+A port of ``freddie_tpu`` (JAX on a TPU) to NVIDIA Hopper GPUs. The
 JAX package stays the reference: this package imports its jax-free host
 code (I/O codec, thresholds, the float surface, the native C/C++ engines,
 the split and isoforms stages, the cluster stage's preprocessing and
@@ -13,8 +13,11 @@ exact solvers) and replaces only the modules that reach ``jax``:
 - ``ops.coverage``: coverage built on the device;
 - ``solver.segenum`` / ``solver.two_phase``: the cluster solver's wide
   and closure rungs with their bounds in torch;
-- ``stages.segment`` / ``stages.cluster`` / ``stages.pipeline``: the
-  stages that route to them.
+- ``ops.polya_batch``: the batched polyA scan;
+- ``parallel.mesh``: one DP batch split over several cards;
+- ``parallel.dist``: the multi-process pipeline on ``torch.distributed``;
+- ``stages.segment`` / ``stages.cluster`` / ``stages.pipeline`` /
+  ``stages.workflow``: the stages and runners that route to them.
 
 Every device decision is explicit: functions take a ``device`` argument,
 CUDA tensors run the kernel, CPU tensors the plain version. This package

@@ -1,12 +1,16 @@
 """Command-line interface of the port.
 
 The JAX package's parser and subcommands, with ``--device {cuda,cpu}``
-(default ``cuda``) on ``segment``, ``cluster`` and ``pipeline``, which run
-on this package; every other subcommand runs ``freddie_tpu`` as it is:
+(default ``cuda``) on ``segment``, ``cluster``, ``pipeline`` and
+``workflow``, which run on this package; every other subcommand (split,
+isoforms and the plots, all host code) runs ``freddie_tpu`` as it is:
 
     python -m freddie_tpu_torch.cli pipeline -b BAM -r READS... -o DIR [--device cuda]
     python -m freddie_tpu_torch.cli segment  -s SPLIT_DIR -o DIR [--device cuda]
     python -m freddie_tpu_torch.cli cluster  -s SEGMENT_DIR -o DIR [--device cuda]
+    python -m freddie_tpu_torch.cli workflow CONFIG.yaml [--set a.b=v]... [--device cuda]
+
+``--device cuda`` splits each DP batch over every visible card.
 """
 
 from __future__ import annotations
@@ -17,7 +21,7 @@ import sys
 from freddie_tpu import cli as jax_cli
 from freddie_tpu.config import ClusterConfig, PipelineConfig, SegmentConfig
 
-PORTED = ("segment", "cluster", "pipeline")
+PORTED = ("segment", "cluster", "pipeline", "workflow")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -71,6 +75,20 @@ def main(argv=None) -> int:
         n = run_cluster(args.segment_dir.rstrip("/"), args.outdir.rstrip("/"), cfg,
                         device=args.device)
         print(f"[cluster] {n} tints")
+    elif args.command == "workflow":
+        import ast
+
+        from .stages.workflow import load_workflow_config, run_workflow
+
+        overrides = {}
+        for item in args.overrides:
+            key, _, val = item.partition("=")
+            try:
+                overrides[key] = ast.literal_eval(val)
+            except (ValueError, SyntaxError):
+                overrides[key] = val
+        config = load_workflow_config(args.config, overrides)
+        run_workflow(config, resume=not args.no_resume, device=args.device)
     else:
         from .stages.pipeline import run_pipeline
 

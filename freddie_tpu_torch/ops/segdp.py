@@ -10,7 +10,8 @@ unchanged (they are numpy); this module owns what reached ``jax`` there:
   oracle the CUDA kernel (``ops.segdp_cuda``) is held against on the card.
 - ``_walk_chains``: the backpointer walk, on the tensors' device.
 - ``dispatch_batch_device`` / ``collect_batch_device`` /
-  ``solve_batch_device``: padding, transfer, launch and readback.
+  ``solve_batch_device``: padding, transfer, launch and readback, over
+  one device or split over several cards (``parallel.mesh``).
 
 The route is set by the device the batch is sent to: CUDA tensors run the
 hand-written kernel, CPU tensors the plain twin. There is no fallback from
@@ -32,8 +33,6 @@ from freddie_tpu.ops.segdp import (  # noqa: F401  (re-exported for callers)
     suggested_batch_size,
 )
 from freddie_tpu.ops.thresholds import ScaledThresholds
-
-from ..device import resolve_device
 
 _NEG = float("-inf")
 
@@ -208,31 +207,36 @@ def to_device(arrays: dict, device) -> dict:
 
 
 class _Launch:
-    """A dispatched batch's (B, P+2) chains on their way to the host.
+    """Device results on their way to the host, read as one array.
 
-    On CUDA the kernel and the chain walk were enqueued on the current
-    stream; the device-to-host copy goes into pinned memory on the SAME
-    stream, then an event. Reading the result waits on that event only,
-    so a readback thread never touches a stream and cannot copy before
-    the launch has finished. ``np.asarray(launch)`` reads it."""
+    ``add(t)`` queues one part (a shard's rows, in batch order): for a
+    CUDA tensor a copy into pinned memory on the CURRENT stream -- the one
+    its producer ran on, so call it under that device and stream -- then
+    an event. ``np.asarray(launch)`` waits on every part's event and
+    concatenates the parts, so a readback thread never touches a stream
+    and cannot copy before a launch has finished."""
 
-    def __init__(self, chains: torch.Tensor):
-        self._chains = chains
-        self._done = None
-        if chains.is_cuda:
-            self.host = torch.empty(
-                chains.shape, dtype=chains.dtype, pin_memory=True
-            )
-            self.host.copy_(chains, non_blocking=True)
-            self._done = torch.cuda.Event()
-            self._done.record()
-        else:
-            self.host = chains
+    def __init__(self, tensor: torch.Tensor | None = None):
+        self._parts: list = []  # (device tensor, host tensor, event or None)
+        if tensor is not None:
+            self.add(tensor)
+
+    def add(self, t: torch.Tensor) -> None:
+        host, done = t, None
+        if t.is_cuda:
+            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            host.copy_(t, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+        self._parts.append((t, host, done))
 
     def __array__(self, dtype=None, copy=None):
-        if self._done is not None:
-            self._done.synchronize()
-        a = self.host.numpy()
+        arrays = []
+        for _t, host, done in self._parts:
+            if done is not None:
+                done.synchronize()
+            arrays.append(host.numpy())
+        a = arrays[0] if len(arrays) == 1 else np.concatenate(arrays)
         return a if dtype is None else a.astype(dtype)
 
 
@@ -251,10 +255,15 @@ def dispatch_batch_device(
     ``handles`` is a ``_Launch`` of the (B, P+2) chains (None when every
     problem was solved inline on the host), ``work`` the indices
     launched, ``results`` the partially-filled output list.
-    collect_batch_device() finishes the job."""
-    from .segdp_cuda import solve_batch_cuda
+    collect_batch_device() finishes the job.
 
-    dev = resolve_device(device)
+    The bare "cuda" splits the batch over every visible card (the loci
+    mesh, ``parallel.mesh``), as the JAX dispatch shards over its local
+    devices, once each card's share passes ``mesh.MESH_MIN_WORK`` (by
+    default never: then it is the current card); "cuda:N" and "cpu" name
+    one device."""
+    from ..parallel import mesh
+
     if not problems:
         return None, [], []
     results: list[list[int] | None] = [None] * len(problems)
@@ -278,6 +287,7 @@ def dispatch_batch_device(
     while B_pad < B:
         B_pad <<= 1
     B_pad = max(B_pad, pad_b_to)
+    devices = mesh.devices_for(device, B_pad * P**3 * R)
     y = np.zeros((B_pad, P), dtype=np.int32)
     W = np.zeros((B_pad, R), dtype=np.float32)
     n_cand = np.zeros((B_pad,), dtype=np.int32)
@@ -297,7 +307,8 @@ def dispatch_batch_device(
         n_cand[B:] = n_cand[0]
 
     # Device coverage build from interval lists (ops.coverage): same
-    # content gates as the JAX dispatch; FREDDIE_DEVICE_COVERAGE=0/1
+    # content gates as the JAX dispatch, including its bound on the mesh
+    # (shards pad only on the dense route); FREDDIE_DEVICE_COVERAGE=0/1
     # overrides. Value-neutral either way.
     env_cov = os.environ.get("FREDDIE_DEVICE_COVERAGE")
     want_cov = (
@@ -307,6 +318,7 @@ def dispatch_batch_device(
     )
     use_dev_cov = (
         want_cov
+        and (-B_pad) % len(devices) == 0
         and all(problems[i].iv is not None for i in work)
         and thr.scale * (int(y.max(initial=0)) + 1) < 2**31
     )
@@ -324,10 +336,7 @@ def dispatch_batch_device(
             iv[b, : len(pv)] = pv
         if B_pad > B:
             iv[B:] = iv[0]
-        from .coverage import build_coverage_device
-
-        t = to_device(dict(iv=iv, y=y, W=W, n_cand=n_cand), dev)
-        C = build_coverage_device(t["iv"], t["y"], R)  # (B, P, R) int32
+        arrays = dict(iv=iv, y=y, W=W, n_cand=n_cand)
     else:
         C = np.zeros((B_pad, P, R), dtype=np.int32)
         for b, i in enumerate(work):
@@ -348,15 +357,17 @@ def dispatch_batch_device(
         # Ship C as int16 when every coverage fits (the common case).
         if int(C.max(initial=0)) < 2**15:
             C = C.astype(np.int16)
-        t = to_device(dict(C=C, y=y, W=W, n_cand=n_cand), dev)
-        C = t["C"]
+        arrays = dict(C=C, y=y, W=W, n_cand=n_cand)
 
-    lookup = torch.from_numpy(np.asarray(thr.lookup, dtype=np.int32)).to(dev)
-    K, best_j, best_k = solve_batch_cuda(
-        C, t["y"], t["W"], t["n_cand"], next(iter(rs)), lookup, thr.scale,
-        wide_weights=bool(W.max(initial=0.0) > 127),
-    )
-    return _Launch(_walk_chains(K, best_j, best_k)), work, results
+    # Several devices: pad B to a multiple of their count by replicating
+    # the last row (outputs unused), as the JAX dispatch pads for its mesh.
+    pad = (-B_pad) % len(devices)
+    if pad:
+        arrays = {k: np.concatenate([a, np.repeat(a[-1:], pad, axis=0)])
+                  for k, a in arrays.items()}
+    (chains,) = mesh.launch_sharded(arrays, next(iter(rs)), thr.lookup, thr.scale,
+                                    devices, return_chains=True)
+    return chains, work, results
 
 
 def collect_batch_device(handles, work, results) -> list[list[int]]:

@@ -88,7 +88,9 @@ def _raise_on(lib, err: int, what: str) -> None:
 def pipelined_grid(B: int, P: int) -> int:
     """K2's number of blocks for B problems at width P on the current
     device: as many as the card holds at once, at most B. The card's
-    figure is queried once per (device, P)."""
+    figure is queried once per (device, P); ``solve_batch_cuda`` asks
+    under ``torch.cuda.device`` of its tensors, so on any card the key and
+    the query (through the context torch made current) name that card."""
     key = (torch.cuda.current_device(), P)
     if key not in _PIPE_BLOCKS:
         lib = _lib()
@@ -118,15 +120,13 @@ def _pipelined_scratch(B: int, P: int, dev):
     return G, OT, INS
 
 
-def solve_batch_cuda(C, y, W, n_cand, read_support, lookup, scale,
-                     wide_weights=True, pipelined=False):
+def solve_batch_cuda(C, y, W, n_cand, read_support, lookup, scale, pipelined=False):
     """Same contract as ``ops.segdp._solve_batch_torch`` and
     ``freddie_tpu``'s ``solve_batch_pallas``: C (B, P, R) int32, y (B, P)
     int32, W (B, R) f32 integer-valued, n_cand (B,) int32, lookup (L+1,)
     int32. ``pipelined`` runs K2 instead of K1, as it runs
-    ``_kernel_pipelined`` there. ``wide_weights`` is accepted for parity
-    with the dispatch: the kernels' int32 contraction is exact for every
-    weight, so they need no weight split."""
+    ``_kernel_pipelined`` there. The kernels' int32 contraction is exact
+    for every weight, so they take no ``wide_weights`` split."""
     global LAUNCHES, PIPELINED_LAUNCHES
     if C.device.type == "cpu":
         return _solve_batch_torch(C, y, W, n_cand, read_support, lookup, scale)

@@ -68,7 +68,7 @@ def test_pipelined_entry_matches_pallas_pipelined(wide):
     Kt, bjt, bkt = solve_batch_cuda(
         torch.from_numpy(C), torch.from_numpy(y), torch.from_numpy(W),
         torch.from_numpy(n_cand), 3, torch.from_numpy(thr.lookup), thr.scale,
-        wide_weights=wide, pipelined=True)
+        pipelined=True)
     for Kp, bjp, bkp in want:
         np.testing.assert_array_equal(np.asarray(bjp), bjt.numpy())
         np.testing.assert_array_equal(np.asarray(bkp), bkt.numpy())

@@ -62,7 +62,7 @@ def test_kernel_matches_plain(cuda_device, P, R, wide):
     lookup = torch.from_numpy(thr.lookup).to(cuda_device)
     args = (t["C"], t["y"], t["W"], t["n_cand"], 3, lookup, thr.scale)
     before = segdp_cuda.LAUNCHES
-    Kc, bjc, bkc = segdp_cuda.solve_batch_cuda(*args, wide_weights=wide)
+    Kc, bjc, bkc = segdp_cuda.solve_batch_cuda(*args)
     assert segdp_cuda.LAUNCHES == before + 1
     Kt, bjt, bkt = tseg._solve_batch_torch(*args)
     torch.cuda.synchronize()
@@ -89,9 +89,9 @@ def test_pipelined_kernel_matches_k1_and_plain(cuda_device, B, P, R, wide):
     lookup = torch.from_numpy(thr.lookup).to(cuda_device)
     args = (t["C"], t["y"], t["W"], t["n_cand"], 3, lookup, thr.scale)
     before = (segdp_cuda.LAUNCHES, segdp_cuda.PIPELINED_LAUNCHES)
-    K2, bj2, bk2 = segdp_cuda.solve_batch_cuda(*args, wide_weights=wide, pipelined=True)
+    K2, bj2, bk2 = segdp_cuda.solve_batch_cuda(*args, pipelined=True)
     assert (segdp_cuda.LAUNCHES, segdp_cuda.PIPELINED_LAUNCHES) == (before[0], before[1] + 1)
-    K1, bj1, bk1 = segdp_cuda.solve_batch_cuda(*args, wide_weights=wide)
+    K1, bj1, bk1 = segdp_cuda.solve_batch_cuda(*args)
     Kt, bjt, bkt = tseg._solve_batch_torch(*args)
     torch.cuda.synchronize()
     for Kr, bjr, bkr in ((K1, bj1, bk1), (Kt, bjt, bkt)):
@@ -131,3 +131,35 @@ def test_wrapper_rejects_bad_input(cuda_device):
         with pytest.raises(ValueError):
             segdp_cuda.solve_batch_cuda(C, y.cpu(), W, n, 3, lookup, thr.scale,
                                         pipelined=pipelined)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_shards", [2, 4])
+def test_mesh_on_one_card_matches_k1_and_host(cuda_device, n_shards, monkeypatch):
+    """solve_batch_sharded over the card listed n times (one stream per
+    shard) is bit-equal to one K1 launch over the whole batch; the
+    dispatch with loci_devices patched to those shards and the work gate
+    at zero pads B=13 to a multiple of n and equals the host oracle."""
+    from freddie_tpu_torch.ops import segdp_cuda
+    from freddie_tpu_torch.parallel import mesh
+
+    rng = np.random.default_rng(n_shards)
+    thr = ScaledThresholds(0.9)
+    C, y, W, n_cand = padded_batch(rng, 16, 32, 128, False)
+    devices = [cuda_device] * n_shards
+    got = mesh.solve_batch_sharded(C, y, W, n_cand, 3, thr.lookup, thr.scale, devices)
+    t = tseg.to_device(dict(C=C, y=y, W=W, n_cand=n_cand), cuda_device)
+    lookup = torch.from_numpy(thr.lookup).to(cuda_device)
+    want = segdp_cuda.solve_batch_cuda(t["C"], t["y"], t["W"], t["n_cand"], 3, lookup,
+                                       thr.scale)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w.cpu().numpy())
+
+    monkeypatch.setattr(mesh, "loci_devices", lambda: devices)
+    monkeypatch.setattr(mesh, "MESH_MIN_WORK", 0)
+    problems = [random_problem(rng, int(rng.integers(2, 30)), int(rng.integers(1, 40)))
+                for _ in range(13)]
+    before = segdp_cuda.LAUNCHES
+    assert tseg.solve_batch_device(problems, thr, device="cuda") == [
+        solve_host(p, thr) for p in problems]
+    assert segdp_cuda.LAUNCHES == before + n_shards
