@@ -1,15 +1,19 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # everything below
+    python3 chip_smoke.py --kernels  # phases 1 and 2 only, no result line
 
 Builds the segmentation-DP kernels from ``freddie_tpu_torch/csrc`` and,
 on the card:
 
 1. holds K1 (``solve_batch_cuda``) and K2 (``pipelined=True``) bit for
-   bit against their plain PyTorch version and each other at the segment
-   stage's chunk shapes and the kernel benchmark shape, and times all
-   three;
+   bit against their plain PyTorch version (TF32 off and on) and each
+   other at the segment stage's chunk shapes and the kernel benchmark
+   shape, with narrow and wide weights (two to four 7-bit limbs),
+   candidate counts far below P (dead blocks) and read_support at both
+   ends of its range, holds K1's chains against ``_walk_chains``, times
+   all three, and reckons each kernel's bound from the run's inputs;
 2. drives K2's path (``solve_batch_cuda(pipelined=True)``) once with the
    launch counts at zero and profiles one K1 and one K2 call;
 3. holds the cluster solver's device bounds against the host bounds,
@@ -78,10 +82,11 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def synthetic_batch(rng, B, P, R, wide):
-    """Padded DP batch with varied candidate counts: monotone coverage with
-    plateaus and jumps (tests/test_segdp.py), sorted positions, weights
-    1..4 (x97 past the 7-bit range when ``wide``)."""
+def synthetic_batch(rng, B, P, R, wide, short=False):
+    """Padded DP batch with varied candidate counts (P/2..P, or 3..P/4 when
+    ``short``): monotone coverage with plateaus and jumps
+    (tests/test_segdp.py), sorted positions, weights 1..4 times ``wide``
+    when it is a number, x97 (past the 7-bit range) when it is True."""
     import numpy as np
 
     inc = rng.integers(0, 12, size=(B, P, R))
@@ -89,13 +94,44 @@ def synthetic_batch(rng, B, P, R, wide):
     C = np.cumsum(inc, axis=1).astype(np.int32)
     y = np.sort(rng.integers(1, 20_000, size=(B, P)), axis=1).astype(np.int32)
     y[:, 0] = 0
-    n_cand = rng.integers(max(3, P // 2), P + 1, size=B).astype(np.int32)
+    lo, hi = (3, max(4, P // 4)) if short else (max(3, P // 2), P)
+    n_cand = rng.integers(lo, hi + 1, size=B).astype(np.int32)
     for b in range(B):
         n = n_cand[b]
         C[b, n:] = C[b, n - 1]
         y[b, n:] = y[b, n - 1]
-    W = rng.integers(1, 5, size=(B, R)).astype(np.float32) * (97 if wide else 1)
+    factor = 97 if wide is True else (int(wide) or 1)
+    W = rng.integers(1, 5, size=(B, R)).astype(np.float32) * factor
+    if W.sum(axis=1).max() >= 2**24:
+        raise ValueError("weights too large: scores must stay exact in float32")
     return dict(C=C, y=y, W=W, n_cand=n_cand)
+
+
+# Published peaks of one H100 SXM (NVIDIA's data sheet): device memory
+# rate and dense int8 tensor-core rate, which the pair contraction's
+# s8 x s8 -> s32 products run at.
+HBM_BYTES_PER_S = 3.35e12
+INT8_OPS_PER_S = 1979e12
+
+
+def bound_ms(t, P: int) -> tuple[float, str, float, float]:
+    """The least time the card could take for one solve_batch call on the
+    batch ``t``: the larger of its bytes (C, y, W, n_cand read once; K,
+    best_j, best_k and the chains written once) over the memory rate and
+    its operations over the int8 peak. The operations are those this
+    batch's data needs: per problem with n candidates, the C(n, 3) live
+    triples j < k < k_ of the pair contraction, 2R multiply-adds each.
+    Returns (bound, "bytes" or "operations", the bytes' time, the
+    operations' time), in ms."""
+    B, _P, R = t["C"].shape
+    read = sum(t[k].numel() * t[k].element_size() for k in ("C", "y", "W", "n_cand"))
+    written = 4 * (B * P * P + 2 * B + B * (P + 2))
+    n = t["n_cand"].to("cpu").double()
+    ops = float((n * (n - 1) * (n - 2) / 6).sum()) * 2 * R * 2
+    by_bytes = (read + written) / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / INT8_OPS_PER_S * 1e3
+    which = "bytes" if by_bytes >= by_ops else "operations"
+    return max(by_bytes, by_ops), which, by_bytes, by_ops
 
 
 def time_ms(fn, reps=TIMED_REPS) -> float:
@@ -130,13 +166,15 @@ def kernel_phase(dev, card) -> dict:
     """K1 and K2 (solve_batch_cuda, pipelined off and on) against
     _solve_batch_torch on the card (TF32 off and on) and each other: K
     rows 0..P-2, best_j and best_k bit-equal, K's last row (best_j,
-    best_k); median times of all three. Returns, per kernel, the largest
-    error and the times at the benchmark shape."""
+    best_k), K1's chains equal to _walk_chains of the plain result;
+    median times of all three. Returns, per kernel, the largest error,
+    the times and the bound at the benchmark shape."""
     import numpy as np
     import torch
 
     from freddie_tpu_torch.ops import segdp_cuda
-    from freddie_tpu_torch.ops.segdp import ScaledThresholds, _solve_batch_torch, to_device
+    from freddie_tpu_torch.ops.segdp import (
+        ScaledThresholds, _solve_batch_torch, _walk_chains, to_device)
 
     thr = ScaledThresholds(0.9)
     lookup = torch.from_numpy(thr.lookup).to(dev)
@@ -145,13 +183,23 @@ def kernel_phase(dev, card) -> dict:
     times = {}
     G = segdp_cuda.pipelined_grid(65535, PIPE_P_R[0])
     pipe_only = [((1,) + PIPE_P_R, False), ((G + 3,) + PIPE_P_R, False)]
-    cases = ([(s, w) for s in CHUNK_SHAPES for w in (False, True)]
-             + [(BENCH_SHAPE, False)] + pipe_only)
-    for (B, P, R), wide in cases:
-        t = to_device(synthetic_batch(rng, B, P, R, wide), dev)
-        args = (t["C"], t["y"], t["W"], t["n_cand"], 3, lookup, thr.scale)
+    # (shape, wide, short, read_support): every chunk shape narrow and
+    # wide (x97: two limbs), the benchmark shape, K2's grid edges; then
+    # candidate counts of 3..P/4 at each P (most blocks dead), three and
+    # four weight limbs, and read_support at 1 and far above most sums.
+    cases = ([(s, w, False, 3) for s in CHUNK_SHAPES for w in (False, True)]
+             + [(BENCH_SHAPE, False, False, 3)]
+             + [(s, False, False, 3) for s, _w in pipe_only]
+             + [(s, False, True, 3) for s in CHUNK_SHAPES[3:]]
+             + [((64, 32, 96), 97 * 300, False, 3), ((64, 16, 6), 2**19, False, 3),
+                ((64, 32, 384), False, False, 1), ((64, 64, 384), True, False, 200)])
+    bounds = {}
+    for (B, P, R), wide, short, rs in cases:
+        t = to_device(synthetic_batch(rng, B, P, R, wide, short), dev)
+        args = (t["C"], t["y"], t["W"], t["n_cand"], rs, lookup, thr.scale)
+        k1 = segdp_cuda.solve_batch_cuda(*args, with_chains=True)
         got = {
-            "segdp": segdp_cuda.solve_batch_cuda(*args),
+            "segdp": k1[:3],
             "segdp_pipelined": segdp_cuda.solve_batch_cuda(*args, pipelined=True),
         }
         plain = []
@@ -162,7 +210,9 @@ def kernel_phase(dev, card) -> dict:
                 torch.cuda.synchronize()
             finally:
                 torch.backends.cuda.matmul.allow_tf32 = False
-        where = f"at B={B} P={P} R={R} wide={wide}"
+        where = f"at B={B} P={P} R={R} wide={wide} short={short} read_support={rs}"
+        if not torch.equal(k1[3], _walk_chains(*plain[0])):
+            raise RuntimeError(f"K1's chains != _walk_chains of the plain result {where}")
         for name, (K, bj, bk) in got.items():
             for tf32, ref in zip((False, True), plain):
                 err = max_abs_diff((K, bj, bk), ref, P)
@@ -178,34 +228,50 @@ def kernel_phase(dev, card) -> dict:
         k1_ms = time_ms(lambda: segdp_cuda.solve_batch_cuda(*args))
         k2_ms = time_ms(lambda: segdp_cuda.solve_batch_cuda(*args, pipelined=True))
         p_ms = time_ms(lambda: _solve_batch_torch(*args))
-        times[(B, P, R, wide)] = (k1_ms, k2_ms, p_ms)
-        log(f"[kernel] B={B} P={P} R={R} wide={wide} (K2 grid "
-            f"{segdp_cuda.pipelined_grid(B, P)}): K1 and K2 bit-equal to "
-            f"plain (tf32 off and on) and to each other, {n_seg}/{B} segmented; "
+        times[(B, P, R, wide, short, rs)] = (k1_ms, k2_ms, p_ms)
+        b_ms, b_by, by_bytes, by_ops = bound_ms(t, P)
+        bounds[(B, P, R, wide, short, rs)] = b_ms, b_by
+        log(f"[kernel] B={B} P={P} R={R} wide={wide} short={short} read_support={rs} "
+            f"(K2 grid {segdp_cuda.pipelined_grid(B, P)}): K1 and K2 bit-equal to "
+            f"plain (tf32 off and on) and to each other, K1's chains equal to "
+            f"_walk_chains, {n_seg}/{B} segmented; "
             f"K1 {k1_ms:.3f} ms, K2 {k2_ms:.3f} ms, plain {p_ms:.3f} ms "
-            f"(median of {TIMED_REPS}) on {card}")
-        del t, args, got, plain
+            f"(median of {TIMED_REPS}); bound {b_ms:.4f} ms by {b_by} (bytes "
+            f"{by_bytes:.4f} ms, operations {by_ops:.4f} ms); on {card}")
+        del t, args, got, plain, k1
         torch.cuda.empty_cache()
-    k1_ms, k2_ms, p_ms = times[BENCH_SHAPE + (False,)]
+    key = BENCH_SHAPE + (False, False, 3)
+    k1_ms, k2_ms, p_ms = times[key]
+    b_ms, b_by = bounds[key]
+    # No one PyTorch call computes the DP: there is no library time.
+    common = dict(plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
     return {
-        "segdp": dict(max_abs_err=max_err["segdp"], ms=k1_ms, plain_ms=p_ms),
-        "segdp_pipelined": dict(max_abs_err=max_err["segdp_pipelined"], ms=k2_ms,
-                                plain_ms=p_ms),
+        "segdp": dict(max_abs_err=max_err["segdp"], ms=k1_ms, **common),
+        "segdp_pipelined": dict(max_abs_err=max_err["segdp_pipelined"], ms=k2_ms, **common),
     }
+
+
+def _device_us(evt) -> float:
+    """A profiler event's total device time in microseconds (the
+    attribute's name differs between PyTorch versions)."""
+    total = getattr(evt, "device_time_total", None)
+    return total if total is not None else getattr(evt, "cuda_time_total", 0.0)
 
 
 def pipelined_path(dev, card) -> int:
     """K2's path, ``solve_batch_cuda(pipelined=True)``, driven once at the
     benchmark shape with every launch count at zero; its result is held
     against K1's. Then one K1 and one K2 call under torch.profiler: the
-    pair-statistics pass alone, the wavefront, and K2. Returns K2's
-    launches in the driven run."""
+    pair-statistics pass alone, the wavefront with its chain walk, and
+    K2; K1's two launches again at the segment stage's three shapes; and
+    the plain chain walk (_walk_chains) that K1's last phase replaces on
+    the card. Returns K2's launches in the driven run."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from freddie_tpu_torch.ops import segdp_cuda
-    from freddie_tpu_torch.ops.segdp import ScaledThresholds, to_device
+    from freddie_tpu_torch.ops.segdp import ScaledThresholds, _walk_chains, to_device
 
     thr = ScaledThresholds(0.9)
     t = to_device(synthetic_batch(np.random.default_rng(7), *BENCH_SHAPE, False), dev)
@@ -234,18 +300,40 @@ def pipelined_path(dev, card) -> int:
     for evt in prof.key_averages():
         for name in ("pair_stats_kernel", "wavefront_kernel", "segdp_pipelined_kernel"):
             if name in evt.key:
-                total = getattr(evt, "device_time_total", None)
-                if total is None:
-                    total = getattr(evt, "cuda_time_total", 0.0)
-                dev_ms[name] = dev_ms.get(name, 0.0) + total / 1000.0 / reps
+                dev_ms[name] = dev_ms.get(name, 0.0) + _device_us(evt) / 1000.0 / reps
     if len(dev_ms) == 3:
         log(f"[pipelined] profiler device time per call at {BENCH_SHAPE}: K1 "
             f"pair_stats alone {dev_ms['pair_stats_kernel']:.3f} ms + wavefront "
-            f"{dev_ms['wavefront_kernel']:.3f} ms; K2 "
+            f"with the chain walk {dev_ms['wavefront_kernel']:.3f} ms; K2 "
             f"{dev_ms['segdp_pipelined_kernel']:.3f} ms (mean of {reps}) on {card}")
     else:
         log(f"[pipelined] profiler recorded no device time for {sorted(dev_ms)}: "
             "per-phase times not measured")
+    # At the segment stage's shapes the whole call follows the host (a
+    # dozen small torch ops before the two launches), so K1's device time
+    # there is read from the profiler as well.
+    for shape in CHUNK_SHAPES[3:]:
+        ts = to_device(synthetic_batch(np.random.default_rng(7), *shape, False), dev)
+        sargs = (ts["C"], ts["y"], ts["W"], ts["n_cand"], 3, args[5], thr.scale)
+        segdp_cuda.solve_batch_cuda(*sargs)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                segdp_cuda.solve_batch_cuda(*sargs)
+            torch.cuda.synchronize()
+        k1_us = {name: sum(_device_us(e) for e in prof.key_averages() if name in e.key) / reps
+                 for name in ("pair_stats_kernel", "wavefront_kernel")}
+        log(f"[pipelined] profiler device time per call at {shape}: K1 pair_stats "
+            f"{k1_us['pair_stats_kernel'] / 1e3:.3f} ms + wavefront with the chain walk "
+            f"{k1_us['wavefront_kernel'] / 1e3:.3f} ms (mean of {reps}; 0.000: not measured) "
+            f"on {card}")
+    walk_ms = time_ms(lambda: _walk_chains(*ref))
+    t0 = time.perf_counter()
+    _walk_chains(*ref)
+    walk_host_ms = (time.perf_counter() - t0) * 1e3
+    log(f"[pipelined] the plain chain walk at {BENCH_SHAPE}: {walk_ms:.3f} ms on the card "
+        f"(median of {TIMED_REPS}), {walk_host_ms:.3f} ms of host time to enqueue its "
+        f"launches; K1 walks the chains inside wavefront_kernel, on {card}")
     return launches
 
 
@@ -257,10 +345,9 @@ def cluster_phase(dev, card) -> None:
     import numpy as np
     import torch
 
-    from freddie_tpu.solver import segenum as jse
-    from freddie_tpu.solver import two_phase as jtp
-    from freddie_tpu.solver.native import native_available
     from freddie_tpu_torch.solver import segenum as tse
+    from freddie_tpu_torch.solver import two_phase as ttp
+    from freddie_tpu_torch.solver.native import native_available
     from freddie_tpu_torch.solver.two_phase import solve_two_phase
     from freddie_tpu_torch.utils.sim import clustered_instance
 
@@ -281,7 +368,7 @@ def cluster_phase(dev, card) -> None:
             stride = 1 if Mi == 21 else (1 << Mi) >> 16
             masks = np.arange(0, 1 << Mi, stride, dtype=np.uint64)
             t0 = time.perf_counter()
-            want = host_bounds(jse._PerStructure(inst), masks)
+            want = host_bounds(tse._PerStructure(inst), masks)
             host_s = time.perf_counter() - t0
             if not np.array_equal(got[::stride], want):
                 raise RuntimeError(f"optimistic_device != host at Mi={Mi} N={N}")
@@ -291,9 +378,9 @@ def cluster_phase(dev, card) -> None:
                 f"({host_s:.3f} s on the host) on {card}")
 
     N = 1000
-    K = -(-jse.BOUNDS_DEVICE_MIN // N)
+    K = -(-tse.BOUNDS_DEVICE_MIN // N)
     rng = np.random.default_rng(40)
-    ctx = jse._PerStructure(clustered_instance(rng, N, 40, k_true=2))
+    ctx = tse._PerStructure(clustered_instance(rng, N, 40, k_true=2))
     masks = np.unique(np.concatenate([
         ctx.I_int[:, 0], rng.integers(0, 1 << 40, size=K, dtype=np.uint64)]))[:, None]
     want = host_bounds(ctx, masks)
@@ -325,7 +412,7 @@ def cluster_phase(dev, card) -> None:
     native_ok = native_available()
     log(f"[cluster] native solver engines: available={native_ok} "
         f"({time.perf_counter() - t0:.3f} s, build included)")
-    saved = (jse.CLOSURE_CAP, jse.BOUNDS_DEVICE_MIN, jtp.NODE_BUDGET)
+    saved = (tse.CLOSURE_CAP, tse.BOUNDS_DEVICE_MIN, ttp.NODE_BUDGET)
     cases = [
         ("wide", clustered_instance(np.random.default_rng(1), 20, 22),
          dict(CLOSURE_CAP=0), "optimistic_device"),
@@ -335,10 +422,10 @@ def cluster_phase(dev, card) -> None:
     try:
         for name in calls:
             setattr(tse, name, counted(name))
-        jtp.NODE_BUDGET = 1
+        ttp.NODE_BUDGET = 1
         for rung, inst, gates, bound in cases:
             for k, v in gates.items():
-                setattr(jse, k, v)
+                setattr(tse, k, v)
             res, secs = {}, {}
             for where in (dev, "cpu"):
                 before = calls[bound]
@@ -357,9 +444,9 @@ def cluster_phase(dev, card) -> None:
                 f"Mi={len(inst.seg_len)}: card {secs[str(dev)]:.3f} s, cpu "
                 f"{secs['cpu']:.3f} s; same status, objective {a.objective}, "
                 f"{len(a.assigned)} reads assigned, same isoform")
-            jse.CLOSURE_CAP, jse.BOUNDS_DEVICE_MIN = saved[:2]
+            tse.CLOSURE_CAP, tse.BOUNDS_DEVICE_MIN = saved[:2]
     finally:
-        jse.CLOSURE_CAP, jse.BOUNDS_DEVICE_MIN, jtp.NODE_BUDGET = saved
+        tse.CLOSURE_CAP, tse.BOUNDS_DEVICE_MIN, ttp.NODE_BUDGET = saved
         for name, fn in real.items():
             setattr(tse, name, fn)
     if "jax" in sys.modules:
@@ -478,7 +565,7 @@ def polya_windows(rng, n: int):
     MAX_WINDOW, the bucket edges and MAX_WINDOW + 1 among them."""
     import numpy as np
 
-    from freddie_tpu.ops.polya_batch import MAX_WINDOW
+    from freddie_tpu_torch.ops.polya_batch import MAX_WINDOW
 
     bases = np.array(list("ACGT"))
     edges = [0, 1, 20, 64, 65, MAX_WINDOW - 1, MAX_WINDOW, MAX_WINDOW + 1]
@@ -505,10 +592,10 @@ def polya_phase(dev, card, run: dict, workdir: str) -> int:
     import numpy as np
     import torch
 
-    from freddie_tpu.ops.polya import _load_ctok
-    from freddie_tpu.ops.polya_batch import MAX_WINDOW, _scan_np
     from freddie_tpu_torch.config import SegmentConfig
     from freddie_tpu_torch.ops import polya_batch as tpb
+    from freddie_tpu_torch.ops.polya import _load_ctok
+    from freddie_tpu_torch.ops.polya_batch import MAX_WINDOW, _scan_np
     from freddie_tpu_torch.ops import segdp_cuda
     from freddie_tpu_torch.stages.segment import run_segment
 
@@ -802,6 +889,9 @@ def main() -> int:
 
     kern = kernel_phase(dev, card)
     pipe_launches = pipelined_path(dev, card)
+    if sys.argv[1:] == ["--kernels"]:
+        log("[kernels] kernel phases only: the paths were not driven, no result line")
+        return 3
     cluster_phase(dev, card)
     workdir = tempfile.mkdtemp(prefix=".chip_smoke-", dir=REPO)
     by_path = {}

@@ -1,10 +1,13 @@
 """freddie_tpu_torch: the freddie-tpu pipeline on PyTorch and CUDA.
 
-A port of ``freddie_tpu`` (JAX on a TPU) to NVIDIA Hopper GPUs. The
-JAX package stays the reference: this package imports its jax-free host
-code (I/O codec, thresholds, the float surface, the native C/C++ engines,
-the split and isoforms stages, the cluster stage's preprocessing and
-exact solvers) and replaces only the modules that reach ``jax``:
+A port of ``freddie_tpu`` (JAX on a TPU) to NVIDIA Hopper GPUs, and a
+package of its own: it imports ``torch``, never ``jax`` and nothing of
+``freddie_tpu``. Each module sits where its counterpart sits there
+(``freddie_tpu/io/tsv.py`` <-> ``freddie_tpu_torch/io/tsv.py``). The host
+code (I/O codecs, thresholds, the float surface, the loaders of the
+native C/C++ engines under ``native/``, the split and isoforms stages,
+the cluster stage's preprocessing and exact solvers) is that package's
+code as it is; what reached ``jax`` there has a torch counterpart:
 
 - ``ops.segdp``: batched segmentation DP dispatch, with the plain
   PyTorch twin of the XLA kernel;
@@ -19,9 +22,10 @@ exact solvers) and replaces only the modules that reach ``jax``:
 - ``stages.segment`` / ``stages.cluster`` / ``stages.pipeline`` /
   ``stages.workflow``: the stages and runners that route to them.
 
-Every device decision is explicit: functions take a ``device`` argument,
-CUDA tensors run the kernel, CPU tensors the plain version. This package
-never imports ``jax``.
+Every routing gate and constant is the module's own, equal in value to
+the JAX package's. Every device decision is explicit: functions take a
+``device`` argument, CUDA tensors run the kernel, CPU tensors the plain
+version.
 """
 
 __version__ = "0.1.0"

@@ -31,6 +31,21 @@ cudaError_t opt_in_smem(Kernel kernel, size_t bytes) {
                               (int)bytes);
 }
 
+// K1's launch 1 with kSlots operand slots per block: one set shared by the
+// tile's rows and columns (P <= kTile), or a set each.
+template <int kSlots>
+cudaError_t launch_pair_stats(const int* Cs, const int* Thi, const int* Tlo, const int* W,
+                              const int* wsum, const int* wmax, const int* n_cand,
+                              float* OT, float* INS, int B, int P, int R, int read_support,
+                              cudaStream_t s) {
+  const size_t smem = sizeof(segdp::PairSmem<kSlots>);
+  cudaError_t err = opt_in_smem(segdp::pair_stats_kernel<kSlots>, smem);
+  if (err != cudaSuccess) return err;
+  segdp::pair_stats_kernel<kSlots><<<dim3(P, B), segdp::kMmaThreads, smem, s>>>(
+      Cs, Thi, Tlo, W, wsum, wmax, n_cand, OT, INS, P, R, read_support);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -38,27 +53,32 @@ extern "C" {
 // Dynamic shared memory the wavefront launch needs at width P.
 size_t segdp_wavefront_smem(int P) { return dyn_smem(P); }
 
-// Solves B padded problems with K1 (two launches). Returns 0 or the
-// cudaError_t of the first launch the runtime refused (cudaGetLastError
-// after each launch).
+// Solves B padded problems with K1 (two launches); R must be a multiple
+// of kMmaStage (reps padded with zero weights); wmax: (B,) each problem's
+// largest weight, chains: (B, P+2) the walked breakpoint chains.
+// Returns 0 or the cudaError_t of the first launch the runtime refused
+// (cudaGetLastError after each launch).
 int segdp_solve(const int* Cs, const int* Thi, const int* Tlo, const int* W,
-                const int* wsum, const int* y, const int* n_cand, float* OT,
-                float* INS, int* K, int* best_j, int* best_k, int B, int P,
-                int R, int read_support, void* stream) {
-  if (B <= 0 || P <= 0 || R < 0 || B > 65535) return (int)cudaErrorInvalidValue;
+                const int* wsum, const int* wmax, const int* y, const int* n_cand,
+                float* OT, float* INS, int* K, int* best_j, int* best_k,
+                int* chains, int B, int P, int R, int read_support, void* stream) {
+  if (B <= 0 || P <= 0 || R < 0 || R % segdp::kMmaStage != 0 || B > 65535)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 
-  dim3 grid1(P, B);
-  segdp::pair_stats_kernel<<<grid1, segdp::kThreads, 0, s>>>(
-      Cs, Thi, Tlo, W, wsum, OT, INS, P, R, read_support);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = P <= segdp::kTile
+                        ? launch_pair_stats<segdp::kTile>(Cs, Thi, Tlo, W, wsum, wmax, n_cand,
+                                                          OT, INS, B, P, R, read_support, s)
+                        : launch_pair_stats<2 * segdp::kTile>(Cs, Thi, Tlo, W, wsum, wmax,
+                                                              n_cand, OT, INS, B, P, R,
+                                                              read_support, s);
   if (err != cudaSuccess) return (int)err;
 
   const size_t smem = dyn_smem(P);
   err = opt_in_smem(segdp::wavefront_kernel, smem);
   if (err != cudaSuccess) return (int)err;
   segdp::wavefront_kernel<<<B, segdp::kThreads, smem, s>>>(
-      OT, INS, y, n_cand, K, best_j, best_k, P);
+      OT, INS, y, n_cand, K, best_j, best_k, chains, P);
   return (int)cudaGetLastError();
 }
 

@@ -38,10 +38,127 @@ import os
 import numpy as np
 import torch
 
-from freddie_tpu.ops.polya_batch import MAX_WINDOW, _L_BUCKETS, _MAX_ROWS, _pad_rows, _scan_np
-
 from ..device import resolve_device
 from .segdp import _Launch
+
+# Windows longer than this score on the host (the vectorised numpy scan):
+# long soft-clips are rare, and the device scan's exactness proof needs
+# L <= 2048.
+MAX_WINDOW = 256
+
+
+def _scan_np(match: np.ndarray, lens: np.ndarray):
+    """Numpy twin of _scan_batch for arbitrary window lengths (also the
+    whole-batch path on a CPU device): fully vectorized, no Python loop
+    over columns.
+
+    The Kadane recurrence s_i = max(0, s_{i-1} + m_i) has the closed form
+    s_i = P_i - min(0, P_0, ..., P_i) with P the prefix sums of m (the
+    best suffix sum ending at i, empty suffix allowed), so the score
+    matrix is one cumsum + one cummin. Runs (maximal s>0 stretches) are
+    reduced with np.maximum.reduceat over the flattened matrix: gaps
+    between runs carry key -1 (< every in-run key), so segments from one
+    run start to the next are equivalent to exact run extents, and no
+    segment straddles rows because a positive score at column 0 is
+    always flagged as a run start (prev_pos there is defined False).
+    Purity comparisons run in float64, exactly like the per-window host
+    scorer (ops.polya.longest_poly_runs + max by purity with the
+    earliest-closed run winning ties); returns the same
+    (found, first, length, cnt) contract as the device scan."""
+    B0, L = match.shape
+    valid0 = np.arange(L, dtype=np.int32)[None, :] < lens[:, None]
+    best_first = np.zeros(B0, np.int64)
+    best_len = np.zeros(B0, np.int64)
+    best_cnt = np.zeros(B0, np.int64)
+
+    # Exact pre-filter: a qualifying run needs length >= 20 and
+    # 20*cnt >= 17*length => cnt >= 17 matches, so rows with a shorter
+    # window or fewer total matches can never produce one. Noisy
+    # soft-clip windows are mostly junk, so this removes the bulk of the
+    # batch before the multi-pass scan arithmetic.
+    active = np.flatnonzero(
+        (lens >= 20) & ((match & valid0).sum(axis=1) >= 17)
+    )
+    if active.size == 0:
+        return np.zeros(B0, bool), best_first, best_len, best_cnt
+    match = match[active] & valid0[active]
+    B = len(active)
+
+    # With padding masked to mismatch, every score step is m_i = 3*match-2
+    # (padding scores decay like mismatches: runs can only shrink toward
+    # their in-window best, never start or improve past `lens`, so
+    # results are unchanged), and the prefix sums come straight from the
+    # match-count prefix: P_i = 3*cnt_i - 2*(i+1). |P| <= 2L and
+    # key <= L*(L+1), so everything fits int32.
+    assert L < 32768
+    cnt_prefix = np.cumsum(match, axis=1, dtype=np.int32)
+    P = 3 * cnt_prefix - np.arange(2, 2 * L + 2, 2, dtype=np.int32)[None, :]
+
+    prefmin = np.minimum.accumulate(
+        np.concatenate([np.zeros((B, 1), np.int32), P], axis=1), axis=1
+    )
+    s = P - prefmin[:, 1:]
+
+    pos = s > 0
+    prev_pos = np.zeros_like(pos)
+    prev_pos[:, 1:] = pos[:, :-1]
+    start = pos & ~prev_pos
+    starts_flat = np.flatnonzero(start.ravel())
+    if starts_flat.size == 0:
+        return np.zeros(B0, bool), best_first, best_len, best_cnt
+
+    # Per-run best position: key = s*(L+1)+col (max s, ties -> latest col,
+    # the reference's max(zip(S, i))); -1 outside runs.
+    cols = np.arange(L, dtype=np.int32)[None, :]
+    key = np.where(pos, s * np.int32(L + 1) + cols, np.int32(-1)).ravel()
+    runbest = np.maximum.reduceat(key, starts_flat)
+
+    run_row = starts_flat // L
+    first = starts_flat % L
+    best_col = runbest % (L + 1)
+    length = best_col + 1 - first
+    cnt = cnt_prefix[run_row, best_col] - np.where(
+        first > 0, cnt_prefix[run_row, np.maximum(first - 1, 0)], 0
+    )
+    ok = (length >= 20) & (20 * cnt >= 17 * length)
+    purity = np.where(ok, cnt / np.maximum(length, 1), -1.0)
+
+    # Per-row winner: max purity, earliest run on ties (runs are in
+    # ascending (row, first) order, so "first run attaining the row max"
+    # reproduces the sequential strict-> update).
+    grp_starts = np.flatnonzero(np.concatenate([[True], np.diff(run_row) != 0]))
+    pmax = np.maximum.reduceat(purity, grp_starts)
+    run_idx = np.arange(len(run_row), dtype=np.int64)
+    grp_of_run = np.cumsum(np.concatenate([[True], np.diff(run_row) != 0])) - 1
+    is_win = purity == pmax[grp_of_run]
+    winner = np.minimum.reduceat(
+        np.where(is_win, run_idx, len(run_row)), grp_starts
+    )
+    grp_row = run_row[grp_starts]
+    grp_found = pmax > -1.0
+    w = winner[grp_found]
+    rows_found = active[grp_row[grp_found]]  # back to pre-filter rows
+    found = np.zeros(B0, bool)
+    found[rows_found] = True
+    best_first[rows_found] = first[w]
+    best_len[rows_found] = length[w]
+    best_cnt[rows_found] = cnt[w]
+    return found, best_first, best_len, best_cnt
+
+
+_L_BUCKETS = (64, MAX_WINDOW)
+_MAX_ROWS = 8192  # rows per scan: bounds the scan's temporaries; callers chunk
+
+
+def _pad_rows(b: int) -> int:
+    """Round the batch dim to a coarse bucket so the shape set stays tiny
+    across calls (the scan itself is cheap, so padding waste is the
+    right trade; the buckets are the JAX module's). Callers chunk at
+    _MAX_ROWS, so the full shape set is {1024, 8192} x _L_BUCKETS."""
+    for p in (1024, _MAX_ROWS):
+        if b <= p:
+            return p
+    raise AssertionError(f"chunk rows {b} > {_MAX_ROWS}")
 
 # Calls of the torch scan (``_scan_batch``), on any device: a run reads it
 # to show that the batched route ran.
@@ -120,7 +237,7 @@ def best_poly_batch(windows: list[str], chars: list[str], device="cuda"):
     before the first readback; on the CPU they take the host scorer,
     unless FREDDIE_POLYA_DEVICE is set, which runs the torch scan there
     (the plain version the tests hold the JAX scan against)."""
-    from freddie_tpu.ops.polya import _load_ctok
+    from .polya import _load_ctok
 
     dev = resolve_device(device)
     ctok = _load_ctok()
@@ -196,7 +313,7 @@ def annotate_gaps_and_polya_batch(items: list[tuple], device="cuda") -> list[lis
     ``best_poly_batch`` call on ``device``. A beats T on equal purity, in
     the host's float64 arithmetic, and the tokens come from the shared
     ``emit_tokens``, so the output is byte-identical to the host path."""
-    from freddie_tpu.ops.polya import _REV_COMP, clip_context, emit_tokens, poly_window
+    from .polya import _REV_COMP, clip_context, emit_tokens, poly_window
 
     ctxs: list[tuple | None] = []
     slots: list[dict | None] = []

@@ -1,9 +1,10 @@
 """The segmentation breakpoint DP on PyTorch: plain twin and batch dispatch.
 
-Port of ``freddie_tpu/ops/segdp.py``. The problem definition, the host
-oracle ``solve_host``, the bucketing (``bucket_shape``) and the batch
-sizing (``suggested_batch_size``) are imported from the JAX package
-unchanged (they are numpy); this module owns what reached ``jax`` there:
+Port of ``freddie_tpu/ops/segdp.py`` (see its docstring for the DP's
+derivation). The problem definition, the host oracle ``solve_host``, the
+bucketing (``bucket_shape``) and the batch sizing
+(``suggested_batch_size``) are that module's numpy code as it is; in
+place of what reached ``jax`` there this module has:
 
 - ``_solve_batch_torch``: the plain PyTorch twin of ``_solve_batch_jax``
   (same contract, same values bit for bit). It is the CPU route and the
@@ -21,20 +22,137 @@ one to the other.
 from __future__ import annotations
 
 import os
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from freddie_tpu.ops.segdp import (  # noqa: F401  (re-exported for callers)
-    MIN_SEG_LEN,
-    DPProblem,
-    bucket_shape,
-    solve_host,
-    suggested_batch_size,
-)
-from freddie_tpu.ops.thresholds import ScaledThresholds
+from .thresholds import ScaledThresholds
 
 _NEG = float("-inf")
+NEG = np.float32(-np.inf)
+MIN_SEG_LEN = 5  # py/freddie_segment.py:540
+
+
+@dataclass
+class DPProblem:
+    """One segmentation problem: candidates [start..end] of one tint interval.
+
+    C: (P, R) int64 -- cumulative coverage rows at the problem's candidates.
+    y: (P,) int64   -- candidate positions (y-space) for lengths/min-seg rules.
+    W: (R,) int64   -- read-rep weights (multiplicities).
+    """
+
+    C: np.ndarray
+    y: np.ndarray
+    W: np.ndarray
+    read_support: int
+    # Optional (K, 3) int32 [ys, ye, rep]: the read-rep intervals
+    # overlapping this problem's candidate range. When every problem in
+    # a dispatch chunk carries them (and the exactness gates pass), the
+    # device builds C itself from these lists (ops.coverage.
+    # build_coverage_device) instead of receiving the dense (B, P, R)
+    # matrix -- identical kernel results, ~10x fewer host->device bytes.
+    iv: "np.ndarray | None" = None
+
+
+def _pair_tensors(C, y, W, thr: ScaledThresholds):
+    """inside (P,P) and outside (P,P,P) tensors, f32 with -inf gates."""
+    P = len(y)
+    scale = thr.scale
+    diff = (C[None, :, :] - C[:, None, :]).astype(np.int64)  # [i,j,r]
+    seg_len = (y[None, :] - y[:, None] + 1).astype(np.int64)  # [i,j]
+    h = thr.high_scaled(np.maximum(seg_len, 0)).astype(np.int64)
+    eq = thr.nay_eq_scaled(np.maximum(seg_len, 0)).astype(np.int64)
+    yea = scale * diff > (h * seg_len)[:, :, None]
+    nay = scale * diff < ((scale - h) * seg_len + eq)[:, :, None]
+    Wf = W.astype(np.float32)
+    yeaW = yea.astype(np.float32) * Wf[None, None, :]
+    nayW = nay.astype(np.float32) * Wf[None, None, :]
+    w_sum = np.float32(Wf.sum())
+    inside = -(w_sum - yeaW.sum(axis=2) - nayW.sum(axis=2))  # (P,P)
+    outside = np.einsum("ijr,jkr->ijk", yeaW, nay.astype(np.float32)) + np.einsum(
+        "ijr,jkr->ijk", nayW, yea.astype(np.float32)
+    )
+    return inside.astype(np.float32), outside.astype(np.float32), seg_len
+
+
+def solve_host(problem: DPProblem, thr: ScaledThresholds) -> list[int]:
+    """Solve one problem on the host; returns chosen breakpoints (local
+    indices in (0, P-1), exclusive of the fixed endpoints)."""
+    P = len(problem.y)
+    if P <= 2:
+        return []
+    inside, outside, seg_len = _pair_tensors(problem.C, problem.y, problem.W, thr)
+    outside = np.where(outside < problem.read_support, NEG, outside)
+    small = (problem.y[None, :] - problem.y[:, None]) < MIN_SEG_LEN  # [a,b] a<b
+
+    end = P - 1
+    H = np.full((P, P), NEG, dtype=np.float32)
+    K = np.full((P, P), -1, dtype=np.int64)
+    H[:end, end] = inside[:end, end]
+    for j in range(end - 2, -1, -1):
+        # candidates k in (j, end), k_ in (k, end]
+        for k in range(j + 1, end):
+            if small[j, k]:
+                continue
+            vals = outside[j, k, k + 1 : end + 1] + H[k, k + 1 : end + 1]
+            vals = np.where(small[k, k + 1 : end + 1], NEG, vals)
+            best = int(np.argmax(vals))
+            if vals[best] == NEG:
+                continue
+            H[j, k] = inside[j, k] + vals[best]
+            K[j, k] = k + 1 + best
+
+    # Top-level selection (first row-major argmax, strict vs no-segmentation).
+    D0 = np.full((P, P), NEG, dtype=np.float32)
+    for j in range(1, end):
+        if small[0, j]:
+            continue
+        row = inside[0, j] + outside[0, j, j + 1 : end + 1] + H[j, j + 1 : end + 1]
+        row = np.where(small[j, j + 1 : end + 1], NEG, row)
+        D0[j, j + 1 : end + 1] = row
+    baseline = inside[0, end]
+    flat = int(np.argmax(D0))
+    best_j, best_k = divmod(flat, P)
+    if not (D0[best_j, best_k] > baseline):
+        return []
+    out = [best_j, best_k]
+    j, k = best_j, best_k
+    while K[j, k] >= 0:
+        k_ = int(K[j, k])
+        out.append(k_)
+        j, k = k, k_
+    return out
+
+
+def bucket_shape(n_cand: int, n_reps: int) -> tuple[int, int]:
+    """The padded (P, R) bucket a problem lands in. ONE definition shared
+    by the batch helper and the streaming stage loop, so the set of
+    kernel shapes cannot silently diverge between them (the edges are the
+    JAX package's, so both packages chunk a corpus alike). Coarse edges
+    keep the shape count small; past the last edge, round up by the
+    step."""
+
+    def edge(x, edges, step):
+        for e in edges:
+            if x <= e:
+                return e
+        return ((x + step - 1) // step) * step
+
+    # R edges are 128-multiples spaced so the rep-padding waste stays
+    # under ~50%: both the kernel's passes over the reps and the
+    # host->device transfer scale with R.
+    return (
+        edge(n_cand, (16, 32, 64), 32),
+        edge(n_reps, (128, 256, 384, 512, 768, 1024, 1536), 512),
+    )
+
+
+def suggested_batch_size(P: int, R: int, budget_bytes: int = 4 << 30) -> int:
+    """Batch size keeping the (B,P,P,R) intermediates within budget."""
+    per_problem = P * P * R * 4 * 6 + P * P * P * 4
+    return max(1, min(4096, budget_bytes // max(per_problem, 1)))
 
 
 def threshold_products(y: torch.Tensor, lookup: torch.Tensor, scale: int):

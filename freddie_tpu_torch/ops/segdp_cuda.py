@@ -7,12 +7,16 @@ runs one of two kernels that compute the same values (details and what
 bounds each on the H100 in ``csrc/segdp_kernels.cuh``):
 
 - K1 (the default; replaces ``segdp_pallas.py:_kernel``): two launches.
-  Phase 1, the pair statistics (~2 P^3 R int32 multiply-adds per
-  problem), on one block per (problem, middle index k), writing the
-  (P, P, P) outside tensor to global memory because it cannot fit one
-  SM's shared memory as it fit the TPU's VMEM; then phases 2-3, the
-  backward wavefront (P strictly dependent steps), on one block per
-  problem with H in shared memory.
+  Phase 1, the pair statistics, on one block per (problem, middle index
+  k): only the entries the wavefront reads (j < k < k_ <= n_cand-1), the
+  contraction as s8 x s8 -> s32 ``mma.sync`` products on the tensor cores
+  (exact; weights above 127 in 7-bit limbs; the reps padded to whole
+  stages of ``REP_STAGE`` with zero weights), written to the (P, P, P)
+  outside tensor in global memory because it cannot fit one SM's shared
+  memory as it fit the TPU's VMEM; then phases 2-3, the backward
+  wavefront (P strictly dependent steps), on one block per problem with
+  H in shared memory, which ends by walking each problem's breakpoint
+  chain (``with_chains``), so the dispatch launches nothing after it.
 - K2 (``pipelined=True``; replaces ``segdp_pallas.py:_kernel_pipelined``):
   one persistent, warp-specialised launch in which each block's producer
   warps compute one problem's pair statistics while its consumer warps
@@ -31,7 +35,7 @@ import ctypes
 import torch
 
 from ._build import load_library
-from .segdp import _solve_batch_torch, threshold_products
+from .segdp import _solve_batch_torch, _walk_chains, threshold_products
 
 # Kernel launches made through solve_batch_cuda, one per solved batch:
 # K1's (both of its launches count once) and K2's.
@@ -50,7 +54,7 @@ def _lib() -> ctypes.CDLL:
     """The built library with its C signatures declared (pointers and the
     stream as void*, so ctypes never truncates them to 32 bits)."""
     lib = load_library("segdp").lib
-    lib.segdp_solve.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 + [
+    lib.segdp_solve.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 4 + [
         ctypes.c_void_p
     ]
     lib.segdp_solve.restype = ctypes.c_int
@@ -120,16 +124,45 @@ def _pipelined_scratch(B: int, P: int, dev):
     return G, OT, INS
 
 
-def solve_batch_cuda(C, y, W, n_cand, read_support, lookup, scale, pipelined=False):
+# Reps per shared-memory stage of K1's phase 1 (kMmaStage in the .cuh):
+# the kernels take R as a multiple of it.
+REP_STAGE = 64
+
+
+def kernel_inputs(C, y, W, lookup, scale):
+    """The kernels' int32 inputs from a padded batch: scale*C, the
+    threshold products T_hi and T_lo, the weights, and each problem's
+    weight sum and largest weight. The reps are padded to a multiple of
+    ``REP_STAGE`` with zero weights, which add nothing to any sum (the
+    segment stage's R buckets are multiples already). Runs on the tensors'
+    device."""
+    T_hi, T_lo = threshold_products(y, lookup, scale)
+    Cs = C * scale  # pre-scaled; the dispatch keeps scale*C below 2^31
+    Wi = W.to(torch.int32)
+    w_sum = Wi.sum(dim=1, dtype=torch.int32)
+    w_max = Wi.amax(dim=1) if W.shape[1] else torch.zeros_like(w_sum)
+    pad = -W.shape[1] % REP_STAGE
+    if pad:
+        Cs = torch.nn.functional.pad(Cs, (0, pad))
+        Wi = torch.nn.functional.pad(Wi, (0, pad))
+    return Cs, T_hi, T_lo, Wi, w_sum, w_max
+
+
+def solve_batch_cuda(C, y, W, n_cand, read_support, lookup, scale, pipelined=False,
+                     with_chains=False):
     """Same contract as ``ops.segdp._solve_batch_torch`` and
     ``freddie_tpu``'s ``solve_batch_pallas``: C (B, P, R) int32, y (B, P)
     int32, W (B, R) f32 integer-valued, n_cand (B,) int32, lookup (L+1,)
     int32. ``pipelined`` runs K2 instead of K1, as it runs
-    ``_kernel_pipelined`` there. The kernels' int32 contraction is exact
-    for every weight, so they take no ``wide_weights`` split."""
+    ``_kernel_pipelined`` there. Both kernels are exact for every weight
+    (K1 splits wide weights into limbs itself), so they take no
+    ``wide_weights`` flag. ``with_chains`` appends the (B, P+2)
+    -1-terminated breakpoint chains to the result: K1 walks them in its
+    wavefront launch; the CPU route and K2 take ``_walk_chains``."""
     global LAUNCHES, PIPELINED_LAUNCHES
     if C.device.type == "cpu":
-        return _solve_batch_torch(C, y, W, n_cand, read_support, lookup, scale)
+        res = _solve_batch_torch(C, y, W, n_cand, read_support, lookup, scale)
+        return res + (_walk_chains(*res),) if with_chains else res
     if C.device.type != "cuda":
         raise ValueError(f"unsupported device {C.device}")
     dev = C.device
@@ -147,13 +180,12 @@ def solve_batch_cuda(C, y, W, n_cand, read_support, lookup, scale, pipelined=Fal
     if lib.segdp_wavefront_smem(P) > _MAX_SMEM:
         raise ValueError(f"P={P}: H does not fit one block's shared memory")
 
-    T_hi, T_lo = threshold_products(y, lookup, scale)
-    Cs = C * scale  # pre-scaled; the dispatch keeps scale*C below 2^31
-    Wi = W.to(torch.int32)
-    w_sum = Wi.sum(dim=1, dtype=torch.int32)
+    Cs, T_hi, T_lo, Wi, w_sum, w_max = kernel_inputs(C, y, W, lookup, scale)
+    R = Wi.shape[1]  # padded
     K = torch.empty((B, P, P), dtype=torch.int32, device=dev)
     best_j = torch.empty((B,), dtype=torch.int32, device=dev)
     best_k = torch.empty((B,), dtype=torch.int32, device=dev)
+    chains = None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if pipelined:
@@ -167,15 +199,20 @@ def solve_batch_cuda(C, y, W, n_cand, read_support, lookup, scale, pipelined=Fal
         else:
             OT = torch.empty((B, P, P, P), dtype=torch.float32, device=dev)
             INS = torch.empty((B, P, P), dtype=torch.float32, device=dev)
+            chains = torch.empty((B, P + 2), dtype=torch.int32, device=dev)
             err = lib.segdp_solve(
                 Cs.data_ptr(), T_hi.data_ptr(), T_lo.data_ptr(), Wi.data_ptr(),
-                w_sum.data_ptr(), y.data_ptr(), n_cand.data_ptr(), OT.data_ptr(),
-                INS.data_ptr(), K.data_ptr(), best_j.data_ptr(), best_k.data_ptr(),
-                B, P, R, int(read_support), stream,
+                w_sum.data_ptr(), w_max.data_ptr(), y.data_ptr(), n_cand.data_ptr(),
+                OT.data_ptr(), INS.data_ptr(), K.data_ptr(), best_j.data_ptr(),
+                best_k.data_ptr(), chains.data_ptr(), B, P, R, int(read_support), stream,
             )
     _raise_on(lib, err, f"segdp{'_pipelined' if pipelined else ''} kernel launch")
     if pipelined:
         PIPELINED_LAUNCHES += 1
     else:
         LAUNCHES += 1
-    return K, best_j, best_k
+    if not with_chains:
+        return K, best_j, best_k
+    if chains is None:
+        chains = _walk_chains(K, best_j, best_k)
+    return K, best_j, best_k, chains

@@ -190,10 +190,9 @@ def segment_stage(gate: int | None, reps: int, workdir: str, log) -> dict:
     and at zero against cuda:0; K1 launches per run and hot seconds."""
     import shutil
 
-    from freddie_tpu.stages.split import run_split
-
     from ..config import SegmentConfig, SplitConfig
     from ..stages.segment import run_segment
+    from ..stages.split import run_split
     from ..utils.sim import BENCH_CORPUS, simulate
 
     sim = simulate(**BENCH_CORPUS)

@@ -3,8 +3,8 @@ collective GTF merge.
 
 Port of ``freddie_tpu/parallel/dist.py``, which runs on
 ``jax.distributed``. Every process runs the same pipeline over the loci
-whose (contig, tint_id) hash lands on it (``owns_tint``, the JAX
-module's); rank 0 splits once, a barrier hands the split to the others,
+whose (contig, tint_id) hash lands on it (``owns_tint``, as in the JAX
+module); rank 0 splits once, a barrier hands the split to the others,
 segment and cluster process only owned loci, and the isoforms stage
 all-gathers the GTF records (lengths first, then padded uint8 payloads)
 and sorts them on every rank, so each rank holds the same GTF and rank 0
@@ -20,19 +20,29 @@ process every collective degenerates to the identity.
 from __future__ import annotations
 
 import datetime
+import hashlib
 import os
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
-from freddie_tpu.config import IsoformsConfig, PipelineConfig
-from freddie_tpu.parallel.dist import owns_tint
-from freddie_tpu.stages.isoforms import tint_isoforms
-from freddie_tpu.stages.split import run_split
-
+from ..config import IsoformsConfig, PipelineConfig
 from ..stages.cluster import run_cluster
+from ..stages.isoforms import tint_isoforms
 from ..stages.segment import run_segment
+from ..stages.split import run_split
+
+
+def owns_tint(contig: str, tint_id: int, process_index: int, process_count: int) -> bool:
+    """Deterministic round-robin-by-hash locus assignment (stable across
+    runs and platforms; not Python's salted hash)."""
+    if process_count <= 1:
+        return True
+    digest = hashlib.blake2b(
+        f"{contig}:{tint_id}".encode(), digest_size=8
+    ).digest()
+    return int.from_bytes(digest, "little") % process_count == process_index
 
 
 def _world() -> tuple[int, int]:

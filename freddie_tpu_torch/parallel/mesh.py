@@ -6,9 +6,9 @@ Port of ``freddie_tpu/parallel/mesh.py``. JAX shards a batch over a 1-D
 on a CUDA stream of its own, so the shards' copies and launches overlap
 across cards (and, where one card is listed more than once, across
 streams on that card). Each shard runs the same steps as a one-device
-launch: the coverage build when interval lists are given, K1
-(``solve_batch_cuda``), then the chain walk. A CPU device runs the plain
-versions. Results are bit-identical to one launch over the whole batch:
+launch: the coverage build when interval lists are given, then K1
+(``solve_batch_cuda``), whose wavefront launch also walks the chains. A
+CPU device runs the plain versions. Results are bit-identical to one launch over the whole batch:
 the DP is independent per problem.
 
 Which cards a call uses (``devices_for``): the bare ``"cuda"`` shards
@@ -28,17 +28,16 @@ import torch
 
 from ..device import resolve_device
 from ..ops.coverage import build_coverage_device
-from ..ops.segdp import _Launch, _walk_chains, to_device
+from ..ops.segdp import _Launch, to_device
 from ..ops.segdp_cuda import solve_batch_cuda
 
 
-# Per-card DP work, B*P^3*R (K1's pair statistics are 2*P^3*R
-# multiply-adds per problem), from which the bare "cuda" splits a batch
+# Per-card DP work, B*P^3*R, from which the bare "cuda" splits a batch
 # over several cards; None: never. ``python -m
 # freddie_tpu_torch.parallel.bench`` measures the crossover: on four
-# H100s the split dispatch lost to one card at every segment-stage shape
-# and at B=2048, P=64, R=512, because each shard's chain walk (~7*P small
-# launches) follows the others' from one host thread (PERF.md).
+# H100s the split dispatch lost to one card at every segment-stage shape,
+# because the dispatch's host work (padding, casts, copies), which a split
+# does not shrink, dwarfs K1 (PERF.md).
 MESH_MIN_WORK: int | None = None
 
 
@@ -112,9 +111,10 @@ def launch_sharded(arrays: dict, read_support: int, lookup, scale: int, devices,
             t = to_device(shard, dev)
             C = build_coverage_device(t["iv"], t["y"], R) if "iv" in t else t["C"]
             res = solve_batch_cuda(C, t["y"], t["W"], t["n_cand"], read_support,
-                                   torch.from_numpy(lookup).to(dev), scale)
+                                   torch.from_numpy(lookup).to(dev), scale,
+                                   with_chains=return_chains)
             if return_chains:
-                res = (_walk_chains(*res),)
+                res = res[3:]
             for out, r in zip(outs, res):
                 out.add(r)
     return outs

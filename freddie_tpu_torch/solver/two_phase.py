@@ -4,23 +4,44 @@ Port of ``freddie_tpu/solver/two_phase.py``: the same escalation chain
 (consolidated native round, union closure, full enumeration, wide
 enumeration, LP proof, full search), with the closure and wide rungs
 taken from this package (``solver.segenum``) so their bounds run on
-``device`` instead of through ``jax``. Every other rung is the JAX
-package's jax-free code. NODE_BUDGET is read from ``freddie_tpu``'s
-module at call time (one source of truth, patchable by tests).
+``device``. Every other rung is that module's host code as it is.
+NODE_BUDGET is this module's own constant, read at call time.
 """
 
 from __future__ import annotations
 
 import time
 
-from freddie_tpu.solver import two_phase as _tp
-from freddie_tpu.solver.exact import ClusterInstance, SolveResult
-from freddie_tpu.solver.lp_bound import lp_lower_bound
-from freddie_tpu.solver.native import solve_round_native
-from freddie_tpu.solver.segenum import solve_segment_enum
-from freddie_tpu.solver.two_phase import _objective_granularity, _solve_raw
-
 from . import segenum
+from .exact import ClusterInstance, SolveResult, solve_exact
+from .lp_bound import lp_lower_bound
+from .native import solve_exact_native, solve_round_native
+from .segenum import solve_segment_enum
+
+# Phase-1 budget: easy instances finish well under this; hard ones
+# escalate quickly to the (native) structure enumeration. The value is
+# part of the deterministic output contract (it decides which engine's
+# equally-optimal tie-break an instance gets), so changes require a
+# deliberate golden-fixture regeneration (tests/test_golden.py recipe).
+# The value is the JAX package's (its module keeps the tuning history);
+# both packages must agree on it to write the same bytes.
+NODE_BUDGET = 1_000
+
+
+def _objective_granularity(inst: ClusterInstance) -> float:
+    """Objective values are sums of integers (corrections) and garbage
+    costs; with the reference's cost models garbage is integral
+    ('constant') or half-integral ('exons'/'introns')."""
+    if all(float(r.garbage).is_integer() for r in inst.rows):
+        return 1.0
+    return 0.5
+
+
+def _solve_raw(inst, deadline_s, node_budget=0) -> SolveResult:
+    res = solve_exact_native(inst, deadline_s, node_budget)
+    if res is not None:
+        return res
+    return solve_exact(inst, deadline_s, node_budget)
 
 
 def solve_two_phase(inst: ClusterInstance, deadline_s: float = 60.0,
@@ -28,7 +49,7 @@ def solve_two_phase(inst: ClusterInstance, deadline_s: float = 60.0,
     """Exact solve; result-identical to ``freddie_tpu``'s
     ``solve_two_phase`` (comments on each rung there)."""
     t0 = time.monotonic()
-    nr = solve_round_native(inst, deadline_s, _tp.NODE_BUDGET)
+    nr = solve_round_native(inst, deadline_s, NODE_BUDGET)
     if nr is not None:
         kind, res = nr
         if kind == "final":
@@ -40,7 +61,7 @@ def solve_two_phase(inst: ClusterInstance, deadline_s: float = 60.0,
             return _escalate(inst, res, t0, deadline_s, device,
                              try_enum=(kind == "budget"))
     else:
-        res = _solve_raw(inst, deadline_s, _tp.NODE_BUDGET)
+        res = _solve_raw(inst, deadline_s, NODE_BUDGET)
         if res.status != "BUDGET":
             return res
     remaining = max(deadline_s - (time.monotonic() - t0), 1.0)

@@ -2,9 +2,8 @@
 
 Port of ``freddie_tpu/stages/pipeline.py`` with the same stage, resume
 and protect semantics (the reference Snakefile's checkpoints). Split and
-isoforms are the JAX package's host stages, called unchanged; segment
-and cluster are this package's own stages, whose DP and solver bounds
-run on ``device``.
+isoforms are host stages; the segment stage's DP and the cluster
+solver's bounds run on ``device``.
 """
 
 from __future__ import annotations
@@ -12,14 +11,13 @@ from __future__ import annotations
 import os
 import shutil
 
-from freddie_tpu.config import PipelineConfig
-from freddie_tpu.stages.isoforms import run_isoforms
-from freddie_tpu.stages.split import run_split
-from freddie_tpu.utils.fsio import is_complete, mark_complete, protect_outputs, set_writable
-from freddie_tpu.utils.metrics import StageMetrics
-
+from ..config import PipelineConfig
+from ..utils.fsio import is_complete, mark_complete, protect_outputs, set_writable
+from ..utils.metrics import StageMetrics
 from .cluster import run_cluster
+from .isoforms import run_isoforms
 from .segment import run_segment
+from .split import run_split
 
 
 def _remove(path: str) -> None:

@@ -4,20 +4,43 @@ Port of ``freddie_tpu/stages/workflow.py:run_workflow``: the same config
 schema, per-stage ``PipelineConfig`` construction, alignment step and
 resume semantics, with each sample run through this package's
 ``run_pipeline`` on ``device``. The config loader and the dotted-path
-overrides are the JAX module's own (jax-free), re-exported here.
+overrides are that module's code as it is (its header has the schema).
 """
 
 from __future__ import annotations
 
 import os
+from typing import Any
 
-from freddie_tpu.config import PipelineConfig
-from freddie_tpu.stages.workflow import (  # noqa: F401  (re-exported)
-    apply_overrides,
-    load_workflow_config,
-)
-
+from ..config import PipelineConfig
 from .pipeline import run_pipeline
+
+
+def apply_overrides(raw: dict, overrides: dict[str, Any]) -> dict:
+    """Apply {'a.b.c': value} overrides into a nested dict; every path must
+    already exist (matching the reference's assert at Snakefile:8)."""
+    for path, value in overrides.items():
+        keys = path.split(".")
+        node = raw
+        for i, k in enumerate(keys[:-1]):
+            # Intermediate sections may be legitimately absent (e.g. an
+            # unset `stages.segment`); create them so any stage parameter
+            # can be overridden from the command line.
+            if k not in node or node[k] is None:
+                node[k] = {}
+            node = node[k]
+        node[keys[-1]] = value
+    return raw
+
+
+def load_workflow_config(path: str, overrides: dict[str, Any] | None = None) -> dict:
+    import yaml
+
+    with open(path) as f:
+        raw = yaml.safe_load(f)
+    if overrides:
+        apply_overrides(raw, overrides)
+    return raw
 
 
 def run_workflow(config: dict, resume: bool = True, log=print, device="cuda") -> dict:
@@ -40,7 +63,7 @@ def run_workflow(config: dict, resume: bool = True, log=print, device="cuda") ->
         if bam is None:
             # The reference's minimap2 rule: `genome` + `reads` in place
             # of a pre-aligned `bam`; skipped on resume once the BAM exists.
-            from freddie_tpu.io.align import align_reads
+            from ..io.align import align_reads
 
             genome = spec.get("genome")
             if not genome:

@@ -5,7 +5,9 @@
 // One std::thread per CUDA thread; __syncthreads is a block-wide
 // std::barrier; a named barrier (group_sync, PTX bar.sync id, n) is one
 // std::barrier per (id, thread count); __shfl_xor_sync exchanges through
-// per-warp slots between two warp barriers. Blocks run one after another,
+// per-warp slots between two warp barriers, and so do the fragments of the
+// tensor-core step (mma_m16n8k32_s8); cp.async copies at once. Blocks run
+// one after another,
 // so function-static
 // arrays (what __shared__ becomes here) serve as shared memory, and the
 // dynamic shared memory is one global buffer filled with garbage before
@@ -28,7 +30,7 @@
 #define __device__
 #define __forceinline__ inline
 #define __restrict__ __restrict
-#define __launch_bounds__(n)
+#define __launch_bounds__(...)
 #define __shared__ static
 #define __align__(n) alignas(n)
 
@@ -40,6 +42,9 @@ struct int2 {
   int x, y;
 };
 inline int2 make_int2(int a, int b) { return int2{a, b}; }
+struct uint2 {
+  unsigned x, y;
+};
 
 inline thread_local dim3 threadIdx;
 inline dim3 blockIdx, blockDim, gridDim;
@@ -48,6 +53,8 @@ inline unsigned char emu_dyn_smem[256 * 1024];
 struct EmuWarp {
   std::unique_ptr<std::barrier<>> bar;
   long long slot[32];
+  unsigned frag_a[32][4];
+  unsigned frag_b[32][2];
 };
 inline std::unique_ptr<std::barrier<>> emu_block_bar;
 inline EmuWarp emu_warps[32];
@@ -83,6 +90,41 @@ T __shfl_xor_sync(unsigned, T v, int lane_mask) {
   T out;
   std::memcpy(&out, &w.slot[lane ^ lane_mask], sizeof(T));
   return out;
+}
+
+// cp.async: the copy is done at once, so groups have nothing to wait for.
+inline void cp_async_8(void* smem, const void* gmem) { std::memcpy(smem, gmem, 8); }
+inline void cp_async_commit() {}
+template <int N>
+void cp_async_wait() {}
+
+// mma.sync.m16n8k32 s8 x s8 -> s32 with the fragment layout documented in
+// segdp_kernels.cuh: the warp's lanes publish their A and B registers,
+// then each lane sums its own four outputs from the assembled tiles.
+inline void mma_m16n8k32_s8(int (&d)[4], const unsigned (&a)[4], const unsigned (&b)[2]) {
+  const int tid = threadIdx.x;
+  EmuWarp& w = emu_warps[tid / 32];
+  const int lane = tid & 31;
+  w.bar->arrive_and_wait();  // the previous exchange has been read
+  for (int i = 0; i < 4; ++i) w.frag_a[lane][i] = a[i];
+  for (int i = 0; i < 2; ++i) w.frag_b[lane][i] = b[i];
+  w.bar->arrive_and_wait();
+  auto byte_of = [](unsigned reg, int i) { return (int)(signed char)((reg >> (8 * i)) & 0xFF); };
+  // A[row][col]: lane (row % 8) * 4 + (col % 16) / 4, register row / 8 + 2 * (col / 16).
+  auto A = [&](int row, int col) {
+    return byte_of(w.frag_a[(row % 8) * 4 + (col % 16) / 4][row / 8 + 2 * (col / 16)], col % 4);
+  };
+  // B[kk][n]: lane n * 4 + (kk % 16) / 4, register kk / 16.
+  auto Bm = [&](int kk, int n) {
+    return byte_of(w.frag_b[n * 4 + (kk % 16) / 4][kk / 16], kk % 4);
+  };
+  const int g = lane >> 2, t4 = lane & 3;
+  for (int c = 0; c < 4; ++c) {
+    const int row = g + 8 * (c >> 1), col = 2 * t4 + (c & 1);
+    int sum = 0;
+    for (int kk = 0; kk < 32; ++kk) sum += A(row, kk) * Bm(kk, col);
+    d[c] += sum;
+  }
 }
 
 // Runs body() as every thread of every block of `grid`, block by block:

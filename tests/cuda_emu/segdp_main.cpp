@@ -4,8 +4,9 @@
 // launches, or with a grid size G, K2's one launch of G blocks.
 //
 //   segdp_emu B P R read_support [G]
-//   in:  Cs.bin Thi.bin Tlo.bin W.bin wsum.bin y.bin n.bin
-//   out: K.bin bj.bin bk.bin
+//   in:  Cs.bin Thi.bin Tlo.bin W.bin wsum.bin wmax.bin y.bin n.bin
+//   out: K.bin bj.bin bk.bin, and K1's chains.bin, OT.bin and INS.bin (its
+//        scratch, of which only the live entries are defined)
 #include <cstdio>
 #include <cstdlib>
 #include <vector>
@@ -44,20 +45,31 @@ int main(int argc, char** argv) {
   auto Tlo = load<int>("Tlo.bin", BPP);
   auto W = load<int>("W.bin", (size_t)B * R);
   auto wsum = load<int>("wsum.bin", B);
+  auto wmax = load<int>("wmax.bin", B);
   auto y = load<int>("y.bin", BP);
   auto n = load<int>("n.bin", B);
   // Garbage in every output and scratch, as torch.empty leaves them.
-  std::vector<int> K(BPP, 777), bj(B, 777), bk(B, 777);
+  std::vector<int> K(BPP, 777), bj(B, 777), bk(B, 777), chains((size_t)B * (P + 2), 777);
   if (G == 0) {
     std::vector<float> OT(BPP * P, 12345.f), INS(BPP, 12345.f);
-    emu_launch(dim3(P, B), segdp::kThreads, [&] {
-      segdp::pair_stats_kernel(Cs.data(), Thi.data(), Tlo.data(), W.data(),
-                               wsum.data(), OT.data(), INS.data(), P, R, rs);
+    if (R % segdp::kMmaStage != 0) return 2;  // the wrapper pads the reps
+    emu_launch(dim3(P, B), segdp::kMmaThreads, [&] {
+      if (P <= segdp::kTile)
+        segdp::pair_stats_kernel<segdp::kTile>(Cs.data(), Thi.data(), Tlo.data(), W.data(),
+                                               wsum.data(), wmax.data(), n.data(),
+                                               OT.data(), INS.data(), P, R, rs);
+      else
+        segdp::pair_stats_kernel<2 * segdp::kTile>(Cs.data(), Thi.data(), Tlo.data(),
+                                                   W.data(), wsum.data(), wmax.data(),
+                                                   n.data(), OT.data(), INS.data(), P, R, rs);
     });
     emu_launch(dim3(B), segdp::kThreads, [&] {
       segdp::wavefront_kernel(OT.data(), INS.data(), y.data(), n.data(),
-                              K.data(), bj.data(), bk.data(), P);
+                              K.data(), bj.data(), bk.data(), chains.data(), P);
     });
+    store("chains.bin", chains);
+    store("OT.bin", OT);
+    store("INS.bin", INS);
   } else {
     const size_t slots = 2 * (size_t)G * P * P;
     std::vector<float> OT(slots * P, 12345.f), INS(slots, 12345.f);

@@ -3,9 +3,9 @@
 The wide and closure rungs of the cluster solver evaluate their bounds
 through ``jax`` in ``freddie_tpu``; the port evaluates them with torch.
 Here both run on the CPU from the same numpy-made instances. Every value
-is an integer or a multiple of 0.5, so the tolerance is zero. The gates
-are patched on ``freddie_tpu``'s modules, as tests/test_segenum_wide.py
-patches them, and the port reads them from there.
+is an integer or a multiple of 0.5, so the tolerance is zero. Each
+package owns its gates, so they are patched on both packages' modules,
+as tests/test_segenum_wide.py patches the JAX package's.
 """
 
 import os
@@ -25,6 +25,7 @@ from freddie_tpu.solver import two_phase as jtp
 from freddie_tpu.stages.cluster import run_cluster as run_jax_cluster
 from freddie_tpu_torch import cli
 from freddie_tpu_torch.solver import segenum as tse
+from freddie_tpu_torch.solver import two_phase as ttp
 from freddie_tpu_torch.solver.two_phase import solve_two_phase
 from freddie_tpu_torch.stages.cluster import run_cluster
 from freddie_tpu_torch.utils.sim import clustered_instance
@@ -52,7 +53,9 @@ def rung(request, monkeypatch):
     gates, bound = RUNGS[request.param]
     for name, value in gates.items():
         monkeypatch.setattr(jse, name, value)
+        monkeypatch.setattr(tse, name, value)
     monkeypatch.setattr(jtp, "NODE_BUDGET", 1)
+    monkeypatch.setattr(ttp, "NODE_BUDGET", 1)
     calls = []
     real = getattr(tse, bound)
     monkeypatch.setattr(tse, bound, lambda *a, **k: calls.append(1) or real(*a, **k))
@@ -109,8 +112,10 @@ def test_two_phase_matches_jax(rung, make):
 def test_two_phase_wide_at_real_gates(monkeypatch):
     """Mi = 22 reaches the wide rung with MAX_SEGS and WIDE_MAX_SEGS as
     they are, once the closure is over its cap."""
-    monkeypatch.setattr(jse, "CLOSURE_CAP", 0)
-    monkeypatch.setattr(jtp, "NODE_BUDGET", 1)
+    for mod in (jse, tse):
+        monkeypatch.setattr(mod, "CLOSURE_CAP", 0)
+    for mod in (jtp, ttp):
+        monkeypatch.setattr(mod, "NODE_BUDGET", 1)
     calls = []
     real = tse.solve_segment_enum_wide
     monkeypatch.setattr(tse, "solve_segment_enum_wide",
@@ -156,7 +161,7 @@ def test_run_cluster_matches_jax(rung, golden_segments, tmp_path, monkeypatch):
 
 
 def test_run_cluster_pool_matches_jax(golden_segments, tmp_path, monkeypatch):
-    """The spawn-pool branch, forced through freddie_tpu's POOL_MIN_BYTES
+    """The spawn-pool branch, forced through the port's POOL_MIN_BYTES
     (read at call time), hands every worker device 'cpu' whatever the
     parent's device is, and writes what freddie_tpu's run_cluster writes.
     FREDDIE_CLUCORE=0 sends every tint through the port's cluster_tint in
@@ -165,12 +170,12 @@ def test_run_cluster_pool_matches_jax(golden_segments, tmp_path, monkeypatch):
 
     import torch
 
-    from freddie_tpu.stages import cluster as jcl
     from freddie_tpu_torch import device as tdev
+    from freddie_tpu_torch.stages import cluster as tcl
 
     monkeypatch.setenv("FREDDIE_CLUCORE", "0")
     run_jax_cluster(golden_segments, str(tmp_path / "jax"), ClusterConfig())
-    monkeypatch.setattr(jcl, "POOL_MIN_BYTES", 0)
+    monkeypatch.setattr(tcl, "POOL_MIN_BYTES", 0)
     # A parent device that no worker may inherit.
     monkeypatch.setattr(tdev, "resolve_device", lambda name: torch.device("meta"))
     jobs = []
@@ -230,6 +235,8 @@ _NO_JAX = textwrap.dedent("""
     from freddie_tpu.config import ClusterConfig
     from freddie_tpu.solver import segenum as jse
     from freddie_tpu.solver import two_phase as jtp
+    from freddie_tpu_torch.solver import segenum as tse
+    from freddie_tpu_torch.solver import two_phase as ttp
     from freddie_tpu_torch.solver.two_phase import solve_two_phase
     from freddie_tpu_torch.stages.cluster import run_cluster
 
@@ -241,7 +248,8 @@ _NO_JAX = textwrap.dedent("""
     for name, (gates, inst) in cases.items():
         for k, v in gates.items():
             setattr(jse, k, v)
-        jtp.NODE_BUDGET = 1
+            setattr(tse, k, v)
+        jtp.NODE_BUDGET = ttp.NODE_BUDGET = 1
         try:
             jtp.solve_two_phase(inst, 120.0)
         except ImportError as e:
@@ -256,6 +264,7 @@ _NO_JAX = textwrap.dedent("""
         out[name] = (res.status, res.objective, res.assigned, res.isoform.tolist())
         for k, v in saved.items():
             setattr(jse, k, v)
+            setattr(tse, k, v)
     assert not [m for m in sys.modules if m == "jax" or m.startswith("jax.")]
     with open(os.path.join(work, "results.pkl"), "wb") as f:
         pickle.dump(out, f)

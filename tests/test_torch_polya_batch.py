@@ -181,12 +181,13 @@ def _same_tree(a, b):
 
 def test_segment_batched_polya_route(split_dir, tmp_path, monkeypatch):
     """Python-path tints (segcore off) with the batched polyA route forced
-    (its read gate patched on the JAX stage, where the port reads it) write
+    (the read gate patched on each stage's own module) write
     the same bytes as the port's host route and the JAX stage's."""
     monkeypatch.setenv("FREDDIE_SEGCORE", "0")
     host = str(tmp_path / "host")
     tseg.run_segment(split_dir, host, SegmentConfig(), device="cpu")
     monkeypatch.setattr(jseg, "POLYA_DEVICE_MIN_READS", 0)
+    monkeypatch.setattr(tseg, "POLYA_DEVICE_MIN_READS", 0)
     monkeypatch.setenv("FREDDIE_POLYA_DEVICE", "1")
     calls = []
     orig = tseg.annotate_gaps_and_polya_batch
@@ -207,7 +208,7 @@ def test_segment_polya_route_off_by_default(split_dir, tmp_path, monkeypatch):
     whatever the read count."""
     monkeypatch.setenv("FREDDIE_SEGCORE", "0")
     monkeypatch.delenv("FREDDIE_POLYA_DEVICE", raising=False)
-    monkeypatch.setattr(jseg, "POLYA_DEVICE_MIN_READS", 0)
+    monkeypatch.setattr(tseg, "POLYA_DEVICE_MIN_READS", 0)
     before = tpb.SCANS
     tseg.run_segment(split_dir, str(tmp_path / "out"), SegmentConfig(), device="cpu")
     assert tpb.SCANS == before

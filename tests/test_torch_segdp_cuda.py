@@ -72,6 +72,51 @@ def test_kernel_matches_plain(cuda_device, P, R, wide):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("tf32", [False, True])
+@pytest.mark.parametrize("case", [
+    dict(P=16, R=128), dict(P=32, R=384), dict(P=64, R=512),
+    dict(P=64, R=384, short=True),  # n_cand far below P: dead blocks
+    dict(P=32, R=96, wide=True, scale_w=300),  # three 7-bit limbs
+    dict(P=16, R=6, scale_w=2**19),  # four limbs, a ragged stage
+    dict(P=32, R=256, rs=1), dict(P=32, R=256, rs=40),  # the gate low and high
+    dict(P=96, R=256),  # several 64 x 64 tiles
+    dict(P=32, R=97, wide=True),  # odd R: reps padded to a whole stage
+], ids=lambda c: "-".join(f"{k}{v}" for k, v in c.items()))
+def test_k1_live_tiles_limbs_gate_and_chains(cuda_device, case, tf32):
+    """The redesigned K1 against the plain version (TF32 off and on: the
+    integer products must not care) at candidate counts below P, wide
+    weights, read_support at both ends, and its chains against
+    _walk_chains."""
+    from freddie_tpu_torch.ops import segdp_cuda
+
+    P, R = case["P"], case["R"]
+    rs, scale_w, short = case.get("rs", 3), case.get("scale_w", 1), case.get("short", False)
+    rng = np.random.default_rng(P * 3 + R + rs)
+    thr = ScaledThresholds(0.9)
+    C, y, W, n_cand = padded_batch(rng, 16, max(6, P // 3) if short else P, R,
+                                   case.get("wide", False))
+    pad = P - C.shape[1]
+    C = np.concatenate([C, np.repeat(C[:, -1:], pad, axis=1)], axis=1)
+    y = np.concatenate([y, np.repeat(y[:, -1:], pad, axis=1)], axis=1)
+    W = W * scale_w
+    assert W.sum(1).max() < 2**24, "scores must stay exact in float32"
+    t = tseg.to_device(dict(C=C, y=y, W=W, n_cand=n_cand), cuda_device)
+    lookup = torch.from_numpy(thr.lookup).to(cuda_device)
+    args = (t["C"], t["y"], t["W"], t["n_cand"], rs, lookup, thr.scale)
+    Kc, bjc, bkc, chains = segdp_cuda.solve_batch_cuda(*args, with_chains=True)
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    try:
+        Kt, bjt, bkt = tseg._solve_batch_torch(*args)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.synchronize()
+    assert torch.equal(bjc, bjt) and torch.equal(bkc, bkt)
+    assert torch.equal(Kc[:, : P - 1], Kt[:, : P - 1])
+    assert torch.equal(chains, tseg._walk_chains(Kt, bjt, bkt))
+    assert (bjt >= 0).any(), "no problem segmented: the case is vacuous"
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("wide", [False, True])
 @pytest.mark.parametrize("B,P,R", [(8, 16, 128), (8, 40, 100), (8, 64, 512), (3, 96, 256),
                                    (1, 32, 512), (401, 16, 128)])
@@ -102,8 +147,8 @@ def test_pipelined_kernel_matches_k1_and_plain(cuda_device, B, P, R, wide):
 
 @pytest.mark.cuda
 def test_dispatch_on_card_matches_host(cuda_device):
-    """The whole dispatch on the card (padding, int16 transfer, kernel,
-    chain walk, pinned readback) against the host oracle."""
+    """The whole dispatch on the card (padding, int16 transfer, the kernel
+    with its chain walk, pinned readback) against the host oracle."""
     rng = np.random.default_rng(42)
     thr = ScaledThresholds(0.9)
     problems = [
