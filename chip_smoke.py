@@ -12,10 +12,14 @@ on the card:
    other at the segment stage's chunk shapes and the kernel benchmark
    shape, with narrow and wide weights (two to four 7-bit limbs),
    candidate counts far below P (dead blocks) and read_support at both
-   ends of its range, holds K1's chains against ``_walk_chains``, times
-   all three, and reckons each kernel's bound from the run's inputs;
+   ends of its range, holds both kernels' chains against
+   ``_walk_chains``, times all three, and reckons each kernel's bound
+   from the run's inputs;
 2. drives K2's path (``solve_batch_cuda(pipelined=True)``) once with the
-   launch counts at zero and profiles one K1 and one K2 call;
+   launch counts at zero, profiles one K1 and one K2 call, checks that
+   K2's chains cost no launch after its kernel, prints what the runtime
+   reports for K2 (blocks per SM, registers, shared memory) and times it
+   at B = G, 2G, 8G and 2048 beside a step model;
 3. holds the cluster solver's device bounds against the host bounds,
    and the port's two-phase solve on the card against the CPU, with the
    gates set so that the wide and the closure rung both run;
@@ -166,7 +170,7 @@ def kernel_phase(dev, card) -> dict:
     """K1 and K2 (solve_batch_cuda, pipelined off and on) against
     _solve_batch_torch on the card (TF32 off and on) and each other: K
     rows 0..P-2, best_j and best_k bit-equal, K's last row (best_j,
-    best_k), K1's chains equal to _walk_chains of the plain result;
+    best_k), both kernels' chains equal to _walk_chains of the plain result;
     median times of all three. Returns, per kernel, the largest error,
     the times and the bound at the benchmark shape."""
     import numpy as np
@@ -198,10 +202,8 @@ def kernel_phase(dev, card) -> dict:
         t = to_device(synthetic_batch(rng, B, P, R, wide, short), dev)
         args = (t["C"], t["y"], t["W"], t["n_cand"], rs, lookup, thr.scale)
         k1 = segdp_cuda.solve_batch_cuda(*args, with_chains=True)
-        got = {
-            "segdp": k1[:3],
-            "segdp_pipelined": segdp_cuda.solve_batch_cuda(*args, pipelined=True),
-        }
+        k2 = segdp_cuda.solve_batch_cuda(*args, pipelined=True, with_chains=True)
+        got = {"segdp": k1[:3], "segdp_pipelined": k2[:3]}
         plain = []
         for tf32 in (False, True):
             torch.backends.cuda.matmul.allow_tf32 = tf32
@@ -211,8 +213,10 @@ def kernel_phase(dev, card) -> dict:
             finally:
                 torch.backends.cuda.matmul.allow_tf32 = False
         where = f"at B={B} P={P} R={R} wide={wide} short={short} read_support={rs}"
-        if not torch.equal(k1[3], _walk_chains(*plain[0])):
-            raise RuntimeError(f"K1's chains != _walk_chains of the plain result {where}")
+        walked = _walk_chains(*plain[0])
+        for name, chains in (("K1", k1[3]), ("K2", k2[3])):
+            if not torch.equal(chains, walked):
+                raise RuntimeError(f"{name}'s chains != _walk_chains of the plain result {where}")
         for name, (K, bj, bk) in got.items():
             for tf32, ref in zip((False, True), plain):
                 err = max_abs_diff((K, bj, bk), ref, P)
@@ -233,12 +237,12 @@ def kernel_phase(dev, card) -> dict:
         bounds[(B, P, R, wide, short, rs)] = b_ms, b_by
         log(f"[kernel] B={B} P={P} R={R} wide={wide} short={short} read_support={rs} "
             f"(K2 grid {segdp_cuda.pipelined_grid(B, P)}): K1 and K2 bit-equal to "
-            f"plain (tf32 off and on) and to each other, K1's chains equal to "
+            f"plain (tf32 off and on) and to each other, both kernels' chains equal to "
             f"_walk_chains, {n_seg}/{B} segmented; "
             f"K1 {k1_ms:.3f} ms, K2 {k2_ms:.3f} ms, plain {p_ms:.3f} ms "
             f"(median of {TIMED_REPS}); bound {b_ms:.4f} ms by {b_by} (bytes "
             f"{by_bytes:.4f} ms, operations {by_ops:.4f} ms); on {card}")
-        del t, args, got, plain, k1
+        del t, args, got, plain, k1, k2, walked
         torch.cuda.empty_cache()
     key = BENCH_SHAPE + (False, False, 3)
     k1_ms, k2_ms, p_ms = times[key]
@@ -263,9 +267,11 @@ def pipelined_path(dev, card) -> int:
     benchmark shape with every launch count at zero; its result is held
     against K1's. Then one K1 and one K2 call under torch.profiler: the
     pair-statistics pass alone, the wavefront with its chain walk, and
-    K2; K1's two launches again at the segment stage's three shapes; and
-    the plain chain walk (_walk_chains) that K1's last phase replaces on
-    the card. Returns K2's launches in the driven run."""
+    K2; K1's two launches again at the segment stage's three shapes; the
+    plain chain walk (_walk_chains) that both kernels' last phase replaces
+    on the card; that K2's call with chains ends in its one kernel; what
+    the runtime reports for K2; and K2's tail (k2_tail). Returns K2's
+    launches in the driven run."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -334,7 +340,65 @@ def pipelined_path(dev, card) -> int:
     log(f"[pipelined] the plain chain walk at {BENCH_SHAPE}: {walk_ms:.3f} ms on the card "
         f"(median of {TIMED_REPS}), {walk_host_ms:.3f} ms of host time to enqueue its "
         f"launches; K1 walks the chains inside wavefront_kernel, on {card}")
+
+    # K2 with its chains: the same launches as without them, the last of
+    # them its own kernel, so nothing walks the chains afterwards.
+    names = {}
+    for with_chains in (False, True):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            got = segdp_cuda.solve_batch_cuda(*args, pipelined=True, with_chains=with_chains)
+            torch.cuda.synchronize()
+        on_card = sorted((e for e in prof.events()
+                          if e.device_type == torch.autograd.DeviceType.CUDA),
+                         key=lambda e: e.time_range.start)
+        names[with_chains] = [e.name for e in on_card]
+    own = [n for n in names[True] if "segdp_pipelined_kernel" in n]
+    if len(own) != 1 or "segdp_pipelined_kernel" not in names[True][-1] \
+            or names[True] != names[False]:
+        raise RuntimeError(f"K2 with chains enqueued {names[True]}, without {names[False]}: "
+                           "expected the same launches, ending in segdp_pipelined_kernel")
+    if not torch.equal(got[3], _walk_chains(*ref)):
+        raise RuntimeError("K2's chains != _walk_chains of K1's result")
+    log(f"[pipelined] solve_batch_cuda(pipelined=True, with_chains=True): "
+        f"{len(names[True])} launches, the same as without chains, the last "
+        f"segdp_pipelined_kernel; chains equal to _walk_chains")
+    for P in (16, 32, 64, 96, 160):
+        log(f"[pipelined] K2 at P={P}, as the runtime reports it: "
+            f"{json.dumps(segdp_cuda.pipelined_occupancy(P))}, grid "
+            f"{segdp_cuda.pipelined_grid(65535, P)}, on {card}")
+    k2_tail(dev, card, lookup=args[5], scale=thr.scale)
     return launches
+
+
+def k2_tail(dev, card, lookup, scale) -> None:
+    """K2's whole call at B = G, 2G, 8G and 2048 problems of P=64, R=512 (G
+    its grid on this card) beside K1 and beside a step model: a block
+    takes about ceil(B/G) problems in turn, so T(B) = T(G) + (ceil(B/G) -
+    1) * p with the step p read off T(8G). What a measured time has above
+    the model is the tail: blocks that wait for the last one."""
+    import numpy as np
+    import torch
+
+    from freddie_tpu_torch.ops import segdp_cuda
+    from freddie_tpu_torch.ops.segdp import to_device
+
+    _B, P, R = BENCH_SHAPE
+    G = segdp_cuda.pipelined_grid(65535, P)
+    sizes = (G, 2 * G, 8 * G, BENCH_SHAPE[0])
+    k1_ms, k2_ms = {}, {}
+    for B in sizes:
+        t = to_device(synthetic_batch(np.random.default_rng(B), B, P, R, False), dev)
+        args = (t["C"], t["y"], t["W"], t["n_cand"], 3, lookup, scale)
+        k1_ms[B] = time_ms(lambda: segdp_cuda.solve_batch_cuda(*args))
+        k2_ms[B] = time_ms(lambda: segdp_cuda.solve_batch_cuda(*args, pipelined=True))
+        del t, args
+        torch.cuda.empty_cache()
+    step = (k2_ms[8 * G] - k2_ms[G]) / 7
+    for B in sizes:
+        steps = -(-B // G)
+        log(f"[pipelined] K2 tail, B={B} (G={G}, {steps} steps) P={P} R={R}: "
+            f"{k2_ms[B]:.3f} ms, step model {k2_ms[G] + (steps - 1) * step:.3f} ms "
+            f"(step {step:.3f} ms); K1 {k1_ms[B]:.3f} ms (medians of {TIMED_REPS}), on {card}")
 
 
 def cluster_phase(dev, card) -> None:

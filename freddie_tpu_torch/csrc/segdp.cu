@@ -14,7 +14,7 @@
 
 namespace {
 
-// Dynamic shared memory of the wavefront (K1's launch 2 and K2): H and ys.
+// Dynamic shared memory of the wavefront (K1's launch 2, and part of K2's): H and ys.
 size_t dyn_smem(int P) {
   return (size_t)P * P * sizeof(float) + (size_t)P * sizeof(int);
 }
@@ -44,6 +44,19 @@ cudaError_t launch_pair_stats(const int* Cs, const int* Thi, const int* Tlo, con
   segdp::pair_stats_kernel<kSlots><<<dim3(P, B), segdp::kMmaThreads, smem, s>>>(
       Cs, Thi, Tlo, W, wsum, wmax, n_cand, OT, INS, P, R, read_support);
   return cudaGetLastError();
+}
+
+// K2 at width P, one instantiation per PairSmem size as for K1's launch
+// 1, and in *dyn the dynamic shared memory it takes: the pair statistics'
+// slots, the wavefront's H and ys, and the four ints of hand-off state.
+using PipeKernel = decltype(&segdp::segdp_pipelined_kernel<segdp::kTile>);
+PipeKernel pipe_kernel(int P, size_t* dyn) {
+  const bool one_set = P <= segdp::kTile;
+  *dyn = (one_set ? sizeof(segdp::PairSmem<segdp::kTile>)
+                  : sizeof(segdp::PairSmem<2 * segdp::kTile>)) +
+         dyn_smem(P) + 4 * sizeof(int);
+  return one_set ? &segdp::segdp_pipelined_kernel<segdp::kTile>
+                 : &segdp::segdp_pipelined_kernel<2 * segdp::kTile>;
 }
 
 }  // namespace
@@ -85,44 +98,57 @@ int segdp_solve(const int* Cs, const int* Thi, const int* Tlo, const int* W,
 // Shared memory (static + dynamic) one block of K2 takes at width P, or 0
 // when the runtime cannot say.
 size_t segdp_pipelined_smem(int P) {
+  size_t dyn = 0;
   cudaFuncAttributes attr;
-  if (cudaFuncGetAttributes(&attr, segdp::segdp_pipelined_kernel) != cudaSuccess) return 0;
-  return attr.sharedSizeBytes + dyn_smem(P);
+  if (cudaFuncGetAttributes(&attr, pipe_kernel(P, &dyn)) != cudaSuccess) return 0;
+  return attr.sharedSizeBytes + dyn;
 }
 
-// How many K2 blocks of width P the current device holds at once (SMs x
-// resident blocks per SM): K2's grid is this, or B when smaller. Writes
-// it to *blocks; returns 0 or a cudaError_t.
-int segdp_pipelined_blocks(int P, int* blocks) {
+// What the runtime reports for K2 at width P on the current device:
+// out[0] the SMs, out[1] the blocks of K2 an SM holds at once, out[2] the
+// registers per thread, out[3] the shared memory per block (static +
+// dynamic). K2's grid is out[0] * out[1], or B when smaller. Returns 0 or
+// a cudaError_t.
+int segdp_pipelined_occupancy(int P, int* out) {
+  size_t dyn = 0;
+  PipeKernel kernel = pipe_kernel(P, &dyn);
   int dev = 0, sms = 0, per_sm = 0;
+  cudaFuncAttributes attr;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess) err = opt_in_smem(segdp::segdp_pipelined_kernel, dyn_smem(P));
+  if (err == cudaSuccess) err = opt_in_smem(kernel, dyn);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, segdp::segdp_pipelined_kernel, segdp::kPipeThreads, dyn_smem(P));
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        segdp::kPipeThreads, dyn);
   if (err != cudaSuccess) return (int)err;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  *blocks = sms * per_sm;
+  out[0] = sms;
+  out[1] = per_sm;
+  out[2] = attr.numRegs;
+  out[3] = (int)(attr.sharedSizeBytes + dyn);
   return 0;
 }
 
 // Solves B padded problems with K2 in one launch of G blocks (1 <= G <=
-// B). OT: (G, 2, P, P, P) and INS: (G, 2, P, P) scratch. Returns 0 or the
-// cudaError_t of the refused launch.
+// B); R a multiple of kMmaStage, wmax and chains as for segdp_solve. OT:
+// (G, 2, P, P, P) and INS: (G, 2, P, P) scratch. queue: one int at zero,
+// from which the blocks draw their problems. Returns 0 or the cudaError_t
+// of the refused launch.
 int segdp_solve_pipelined(const int* Cs, const int* Thi, const int* Tlo,
-                          const int* W, const int* wsum, const int* y,
-                          const int* n_cand, float* OT, float* INS, int* K,
-                          int* best_j, int* best_k, int B, int P, int R,
-                          int read_support, int G, void* stream) {
-  if (B <= 0 || P <= 0 || R < 0 || G <= 0 || G > B) return (int)cudaErrorInvalidValue;
-  const size_t smem = dyn_smem(P);
-  cudaError_t err = opt_in_smem(segdp::segdp_pipelined_kernel, smem);
+                          const int* W, const int* wsum, const int* wmax,
+                          const int* y, const int* n_cand, float* OT, float* INS,
+                          int* K, int* best_j, int* best_k, int* chains, int* queue,
+                          int B, int P, int R, int read_support, int G, void* stream) {
+  if (B <= 0 || P <= 0 || R < 0 || R % segdp::kMmaStage != 0 || G <= 0 || G > B)
+    return (int)cudaErrorInvalidValue;
+  size_t dyn = 0;
+  PipeKernel kernel = pipe_kernel(P, &dyn);
+  cudaError_t err = opt_in_smem(kernel, dyn);
   if (err != cudaSuccess) return (int)err;
-  segdp::segdp_pipelined_kernel<<<G, segdp::kPipeThreads, smem,
-                                  static_cast<cudaStream_t>(stream)>>>(
-      Cs, Thi, Tlo, W, wsum, y, n_cand, OT, INS, K, best_j, best_k, B, P, R,
-      read_support);
+  kernel<<<G, segdp::kPipeThreads, dyn, static_cast<cudaStream_t>(stream)>>>(
+      Cs, Thi, Tlo, W, wsum, wmax, y, n_cand, OT, INS, K, best_j, best_k, chains, queue,
+      B, P, R, read_support);
   return (int)cudaGetLastError();
 }
 

@@ -9,19 +9,16 @@
 //    T_hi/T_lo give the yea/nay indicators; the pair contraction
 //        O(j, k, k_) = sum_r W_r (yea(j,k,r) nay(k,k_,r) + nay(j,k,r) yea(k,k_,r))
 //    is gated to -inf below read_support and written j-major,
-//    OT[j][k][k_], so the wavefront reads contiguous planes. It exists in
-//    two bodies that compute the same integers:
-//      pair_stats_mma_body (K1): the contraction on the tensor cores, only
-//        over the entries the wavefront reads (below);
-//      pair_stats_body (K2): every entry, as a register-tiled int32
-//        product on the CUDA cores.
+//    OT[j][k][k_], so the wavefront reads contiguous planes. One body,
+//    pair_stats_mma_body, serves both kernels: the contraction on the
+//    tensor cores, only over the entries the wavefront reads (below).
 //  - wavefront_body (phases 2-3 and the chain walk), one problem on a
 //    group of warps. H (P x P f32) lives in shared memory; the backward
 //    wavefront over j is P strictly dependent steps, each a set of
 //    independent masked row maxima (one warp per row, first-index
 //    tie-break) read from the OT plane j, touching only the rows that can
 //    be valid (j < k < end). Then the top-level row-major first argmax
-//    against the no-split baseline, and (K1) one thread follows the
+//    against the no-split baseline, and one thread follows the
 //    backpointers from the top pair and writes the -1-terminated chain of
 //    P+2 entries that the dispatch reads back, so no launch follows the
 //    kernel (ops/segdp.py:_walk_chains is the plain version).
@@ -33,7 +30,8 @@
 // grid (P, B), one block per (problem, k); then wavefront_kernel, grid
 // (B), one block per problem.
 //
-// K1's phase 1 on this card (pair_stats_mma_body):
+// Phase 1 on this card (pair_stats_mma_body; K1 runs one block per
+// (problem, k), K2's producer group runs a problem's k in turn):
 //  - Only live work. The wavefront reads outside(j, k, k_) only for
 //    j < k < k_ <= end = n_cand-1, and inside(j, k) only for j < k <= end.
 //    A block with k = 0 or k > end returns at once; the others build
@@ -85,18 +83,46 @@
 // freddie_tpu/ops/segdp_pallas.py:_kernel_pipelined, which interleaves
 // problem b's phase 1 with problem b-1's phases 2-3 inside one TPU grid
 // step. Here that overlap is warp specialisation in one persistent
-// launch: block g of G owns problems g, g+G, ... and runs one step more
-// than it owns problems; at step t a producer group of 8 warps computes
-// problem t's pair statistics into scratch slot t mod 2 while a consumer
-// group of 4 warps runs problem t-1's wavefront and argmax from the
-// other slot, and a block-wide barrier ends the step. What bounds it:
-// phase 1 (pair_stats_body: ~2 P^3 R int32 multiply-adds per problem on
-// the CUDA cores), now on one block per problem instead of P, so G x 8
-// warps carry all of it (G is the number of blocks the card holds at
-// once); the wavefront's P dependent steps are hidden under the next
-// problem's phase 1 when a block owns two problems or more. A block
-// owning one problem (B <= G, e.g. the segment stage's chunks of 64) gets
-// no overlap: its consumer waits a whole step for the producer.
+// launch of G blocks (as many as the card holds at once, at most B):
+//  - The producer group, two warpgroups (8 warps), runs
+//    pair_stats_mma_body for k = 1..end of one problem after another,
+//    into the block's two scratch slots in global memory, OT (G, 2, P, P,
+//    P) and INS (G, 2, P, P), in turn. It writes the live entries only,
+//    and the consumer reads only entries that the same problem's producer
+//    wrote (`end` is the same on both sides), so what an earlier occupant
+//    left in a slot is never looked at.
+//  - The consumer group, one warpgroup (4 warps), runs wavefront_body on
+//    the slot that is full and writes K, best_j, best_k and the chain.
+//  - The hand-off is per slot, through named barriers of all 12 warps:
+//    "full" (the producers arrive with bar.arrive after a block-scope
+//    fence, the consumers wait in bar.sync) and "free" (the reverse). No
+//    block-wide barrier ends a step: the producer stalls only when both
+//    slots are full, the consumer only when neither is. The problem a slot
+//    holds travels with it in shared memory; a number >= B ends the
+//    consumer. On leaving, the producer waits for the last "free", so
+//    every arrival is matched by a wait.
+//  - Work: block g starts with problem g and then takes the next problem
+//    from a counter in global memory (atomicAdd by one thread, zeroed by
+//    the wrapper), because problems differ several times in live work
+//    (C(n_cand, 3) triples) and blocks that own g, g+G, ... wait for the
+//    unluckiest. The results do not depend on the order.
+//  - Shared memory, all dynamic: one PairSmem, then H, ys and four ints
+//    of hand-off state: 70 KB at P <= 64, two blocks of 12 warps per SM;
+//    a wider problem takes PairSmem<128> (105 KB), one block per SM, and
+//    fits up to P = 176.
+//  - Registers are what stop a third block: two blocks of 384 threads
+//    get 80 registers a thread, and the phase-1 body inside the step loop
+//    spills at 80. The consumer needs 32, so at P <= 64 it releases the
+//    rest (setmaxnreg) and the producers take 104 each. A third block
+//    would leave 56 a thread and 16 KB of L1 beside 212 KB of shared
+//    memory; it measured slower than two.
+// What bounds it is what bounds phase 1 (the indicator build on the CUDA
+// cores), now on 16 producer warps per SM where K1 has 32, too few to
+// cover that loop's barriers and latencies as K1's four blocks do; the
+// wavefront's P dependent steps hide under the next problem's phase 1. A
+// block that gets one problem (B <= G, e.g. the segment stage's chunks of
+// 64) runs its k in series and then the wavefront, with nothing to
+// overlap: K1 is the kernel for those.
 //
 // -inf is only ever added to finite values or to -inf, so no NaN arises.
 
@@ -104,18 +130,24 @@
 
 namespace segdp {
 
-constexpr int kThreads = 256;  // the wavefront's blocks; K2's producer group
+constexpr int kThreads = 256;  // the wavefront's blocks
 constexpr int kWarps = kThreads / 32;
 constexpr int kTile = 64;  // pair-statistics output tile edge (rows j, columns k_)
-constexpr int kStage = 32;  // reps per shared-memory stage: one per lane
 constexpr int kMinSegLen = 5;  // segments shorter than 5 bp are forbidden
 constexpr int kConsumerWarps = 4;  // K2's wavefront group
-constexpr int kPipeThreads = kThreads + 32 * kConsumerWarps;
+constexpr int kMmaStage = 64;  // reps per stage of phase 1: two per lane
+constexpr int kMmaWarps = 8;  // warps of phase 1: K1's block, K2's producer group
+constexpr int kMmaThreads = 32 * kMmaWarps;
+constexpr int kPipeThreads = kMmaThreads + 32 * kConsumerWarps;
 constexpr int kProducerBar = 1;  // K2's named barriers; 0 is the whole block
 constexpr int kConsumerBar = 2;
-constexpr int kMmaStage = 64;  // reps per stage of K1's phase 1: two per lane
-constexpr int kMmaWarps = 8;  // warps of a block of K1's phase 1
-constexpr int kMmaThreads = 32 * kMmaWarps;
+constexpr int kFullBar = 3;  // + slot: the slot's pair statistics are complete
+constexpr int kFreeBar = 5;  // + slot: the slot's wavefront is done
+// K2 at two blocks per SM starts with 80 registers a thread; the consumer
+// warpgroup hands its surplus to the two producer warpgroups:
+// 128 * 32 + 256 * 104 = 384 * 80.
+constexpr int kConsumerRegs = 32;
+constexpr int kProducerRegs = 104;
 constexpr int kMmaNt = 32 / kMmaWarps;  // 8-column product tiles a warp owns
 constexpr int kOpRow = 2 * kMmaStage + 32;  // bytes of one operand row of a stage, padded
 
@@ -125,6 +157,28 @@ constexpr int kOpRow = 2 * kMmaStage + 32;  // bytes of one operand row of a sta
 // CPU emulator (tests/cuda_emu/emu.h) supplies its own.
 __device__ __forceinline__ void group_sync(int id, int nthreads) {
   asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(nthreads) : "memory");
+}
+// Arrives at barrier `id` without waiting (PTX bar.arrive): the barrier
+// completes once `nthreads` threads have arrived or wait in group_sync on
+// it, and what this thread wrote before, to shared or global memory, is
+// visible to the threads it releases.
+__device__ __forceinline__ void group_arrive(int id, int nthreads) {
+  __threadfence_block();
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(nthreads) : "memory");
+}
+#endif
+
+#ifndef CUDA_EMU
+// setmaxnreg: a whole warpgroup gives registers back to its block's pool
+// (reg_release) or takes them from it, waiting until they are there
+// (reg_take); N a multiple of 8. The CPU emulator makes both no-ops.
+template <int N>
+__device__ __forceinline__ void reg_release() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void reg_take() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(N));
 }
 #endif
 
@@ -218,7 +272,7 @@ __device__ __forceinline__ int slot_kind(int s, int j0, int c0, int k, int end, 
   return (cand < k || cand > end) ? kDead : cand == k ? kColOnes : kColB;
 }
 
-// Phase 1 of K1 for middle index k of one problem, on kMmaThreads threads
+// Phase 1 for middle index k of one problem, on kMmaThreads threads
 // (tid 0..kMmaThreads-1) sharing barrier `bar`: the live part only, with the
 // contraction on the tensor cores (design in the header). Cb: (P, R)
 // scale*C; Thb/Tlb: (P, P) threshold products of the pair (row, column);
@@ -414,128 +468,6 @@ __device__ __forceinline__ void pair_stats_mma_body(
   }
 }
 
-// Phase 1 of K2 for middle index k of one problem, on kThreads threads (tid
-// 0..kThreads-1) sharing barrier `bar`. Cb: (P, R) scale*C; Thb/Tlb: (P, P)
-// threshold products of the pair (row, column); Wb: (R,) integer weights;
-// wsum: their sum. Writes OTb[j][k][k_] = gated outside(j, k, k_) for all
-// j, k_ and INb[j][k] = inside(j, k).
-__device__ __forceinline__ void pair_stats_body(
-    const int* __restrict__ Cb, const int* __restrict__ Thb,
-    const int* __restrict__ Tlb, const int* __restrict__ Wb, int wsum,
-    float* OTb, float* INb, int k, int P, int R, int read_support, int tid,
-    int bar) {
-  // (W*yea(j,k), W*nay(j,k)) for the tile's rows j, and
-  // (nay(k,k_), yea(k,k_)) for its columns k_; one row per rep of the
-  // stage, padded by one pair against bank conflicts.
-  __shared__ int2 A[kStage][kTile + 1];
-  __shared__ int2 F[kStage][kTile + 1];
-  __shared__ int ck[kStage];
-  __shared__ int wr[kStage];
-  __shared__ int t_to[2][kTile];    // T_hi, T_lo of the pair (j, k)
-  __shared__ int t_from[2][kTile];  // T_hi, T_lo of the pair (k, k_)
-  __shared__ int rowsum[kTile];
-
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-
-  for (int j0 = 0; j0 < P; j0 += kTile) {
-    for (int c0 = 0; c0 < P; c0 += kTile) {
-      const bool with_inside = (c0 == 0);
-      group_sync(bar, kThreads);  // the previous tile is done with t_to/t_from/rowsum
-      if (tid < kTile) {
-        const int j = j0 + tid;
-        t_to[0][tid] = j < P ? Thb[(long long)j * P + k] : 0;
-        t_to[1][tid] = j < P ? Tlb[(long long)j * P + k] : 0;
-        rowsum[tid] = 0;
-      } else if (tid < 2 * kTile) {
-        const int q = c0 + tid - kTile;
-        t_from[0][tid - kTile] = q < P ? Thb[(long long)k * P + q] : 0;
-        t_from[1][tid - kTile] = q < P ? Tlb[(long long)k * P + q] : 0;
-      }
-
-      int acc[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[i][c] = 0;
-
-      for (int r0 = 0; r0 < R; r0 += kStage) {
-        group_sync(bar, kThreads);  // A/F are free, t_to/t_from are visible
-        if (tid < kStage) {
-          const int r = r0 + tid;
-          ck[tid] = r < R ? Cb[(long long)k * R + r] : 0;
-          wr[tid] = r < R ? Wb[r] : 0;
-        }
-        group_sync(bar, kThreads);
-        const int r = r0 + lane;
-        const bool r_in = r < R;
-        const int ckr = ck[lane];
-        const int w = wr[lane];
-        for (int p = warp; p < kTile; p += kWarps) {
-          const int j = j0 + p;
-          int2 a = make_int2(0, 0);
-          if (j < P && r_in) {
-            const int d = ckr - Cb[(long long)j * R + r];  // scale*(C[k]-C[j])
-            a.x = d > t_to[0][p] ? w : 0;
-            a.y = d < t_to[1][p] ? w : 0;
-          }
-          A[lane][p] = a;
-          if (with_inside) {
-            const int s = warp_sum(a.x + a.y);
-            if (lane == 0) rowsum[p] += s;
-          }
-          const int q = c0 + p;
-          int2 f = make_int2(0, 0);
-          if (q < P && r_in) {
-            const int d = Cb[(long long)q * R + r] - ckr;  // scale*(C[q]-C[k])
-            f.x = d < t_from[1][p] ? 1 : 0;  // nay(k, q)
-            f.y = d > t_from[0][p] ? 1 : 0;  // yea(k, q)
-          }
-          F[lane][p] = f;
-        }
-        group_sync(bar, kThreads);
-#pragma unroll 4
-        for (int s = 0; s < kStage; ++s) {
-          int2 a[4], f[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) a[i] = A[s][ty + 16 * i];
-#pragma unroll
-          for (int c = 0; c < 4; ++c) f[c] = F[s][tx + 16 * c];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            if (j0 + 16 * i >= P) continue;
-#pragma unroll
-            for (int c = 0; c < 4; ++c) {
-              if (c0 + 16 * c >= P) continue;
-              acc[i][c] += a[i].x * f[c].x + a[i].y * f[c].y;
-            }
-          }
-        }
-      }
-
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int j = j0 + ty + 16 * i;
-        if (j >= P) continue;
-        float* row = OTb + ((long long)j * P + k) * P;
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int q = c0 + tx + 16 * c;
-          if (q >= P) continue;
-          const int v = acc[i][c];
-          row[q] = v < read_support ? -INFINITY : (float)v;
-        }
-      }
-      if (with_inside && tid < kTile && j0 + tid < P) {
-        // inside(j, k) = -(w_sum - sum_r W*yea - sum_r W*nay)
-        INb[(long long)(j0 + tid) * P + k] = (float)(rowsum[tid] - wsum);
-      }
-    }
-  }
-}
-
 // Phases 2-3 of one problem, on `nwarps` warps (tid 0..32*nwarps-1, at
 // most kWarps) sharing barrier `bar`. Reads OTb/INb as phase 1 wrote them,
 // yb: (P,) positions, n_cand; H: P*P floats and ys: P ints of shared
@@ -544,7 +476,7 @@ __device__ __forceinline__ void pair_stats_body(
 // stores them) and *bj, *bk; and, when `chain` is not null, the P+2
 // entries of the breakpoint chain: best_j, best_k, then K[j][k] followed
 // from the top pair while it is >= 0, -1 from there on (all -1 when no
-// segmentation won). Only entries that phase 1 of K1 writes are read.
+// segmentation won). Only entries that phase 1 writes are read.
 __device__ __forceinline__ void wavefront_body(
     const float* OTb, const float* INb, const int* __restrict__ yb, int n_cand,
     int* Kb, int* bj_out, int* bk_out, int* chain, int P, float* H, int* ys,
@@ -692,46 +624,76 @@ wavefront_kernel(const float* __restrict__ OT, const float* __restrict__ INS,
                  P, H, ys, threadIdx.x, kWarps, 0);
 }
 
-// K2, grid (G) with G <= B, kPipeThreads threads. Inputs and outputs as
-// K1's; OT: (G, 2, P, P, P) and INS: (G, 2, P, P) are per-block scratch
-// slots (not restrict: written and read within the launch). Dynamic shared
-// memory: P*P floats + P ints.
-__global__ void __launch_bounds__(kPipeThreads)
+// K2, grid (G) with G <= B, kPipeThreads threads: threads below
+// kMmaThreads produce, the rest consume (design in the header). Inputs and
+// outputs as K1's; OT: (G, 2, P, P, P) and INS: (G, 2, P, P) are per-block
+// scratch slots (not restrict: written and read within the launch, so no
+// load of them may take the non-coherent path). queue: one int at zero
+// from which the blocks draw problems G, G+1, ... kSlots as for K1's
+// launch 1. Dynamic shared memory: one PairSmem<kSlots>, P*P floats, P
+// ints, 4 ints.
+template <int kSlots>
+__global__ void __launch_bounds__(kPipeThreads, kSlots == kTile ? 2 : 1)
 segdp_pipelined_kernel(const int* __restrict__ Cs, const int* __restrict__ Thi,
                        const int* __restrict__ Tlo, const int* __restrict__ Wt,
-                       const int* __restrict__ wsum, const int* __restrict__ y,
-                       const int* __restrict__ n_cand, float* OT, float* INS,
-                       int* K, int* __restrict__ best_j,
-                       int* __restrict__ best_k, int B, int P, int R,
-                       int read_support) {
+                       const int* __restrict__ wsum, const int* __restrict__ wmax,
+                       const int* __restrict__ y, const int* __restrict__ n_cand,
+                       float* OT, float* INS, int* K, int* __restrict__ best_j,
+                       int* __restrict__ best_k, int* __restrict__ chains, int* queue,
+                       int B, int P, int R, int read_support) {
   extern __shared__ __align__(16) unsigned char segdp_dyn_smem[];
-  float* H = reinterpret_cast<float*>(segdp_dyn_smem);
+  PairSmem<kSlots>* pair = reinterpret_cast<PairSmem<kSlots>*>(segdp_dyn_smem);
+  float* H = reinterpret_cast<float*>(segdp_dyn_smem + sizeof(PairSmem<kSlots>));
   int* ys = reinterpret_cast<int*>(H + P * P);
+  volatile int* prob = ys + P;    // [slot]: the problem the slot holds, or >= B: the end
+  volatile int* next = prob + 2;  // [slot]: thread 0's draw from the queue
   const int g = blockIdx.x;
   const int G = gridDim.x;
-  const int owned = (B - g + G - 1) / G;  // problems g, g+G, g+2G, ...
   const int tid = threadIdx.x;
   const long long PP = (long long)P * P;
   const long long PPP = PP * P;
 
-  for (int t = 0; t <= owned; ++t) {
-    if (tid < kThreads) {
-      if (t < owned) {  // producer: problem t's phase 1 into slot t % 2
-        const long long b = g + (long long)t * G;
-        const long long slot = 2LL * g + (t & 1);
-        for (int k = 0; k < P; ++k)
-          pair_stats_body(Cs + b * P * R, Thi + b * PP, Tlo + b * PP, Wt + b * R,
-                          wsum[b], OT + slot * PPP, INS + slot * PP, k, P, R,
-                          read_support, tid, kProducerBar);
-      }
-    } else if (t > 0) {  // consumer: problem t-1's phases 2-3 from the other slot
-      const long long b = g + (long long)(t - 1) * G;
-      const long long slot = 2LL * g + ((t - 1) & 1);
-      wavefront_body(OT + slot * PPP, INS + slot * PP, y + b * P, n_cand[b],
-                     K + b * PP, best_j + b, best_k + b, nullptr, P, H, ys,
-                     tid - kThreads, kConsumerWarps, kConsumerBar);
+  if (tid < kMmaThreads) {
+    if (kSlots == kTile) reg_take<kProducerRegs>();
+    // Producer. Step t puts problem b into slot t % 2; the step that finds
+    // no problem left puts the end marker there.
+    int b = g, t = 0;
+    for (;; ++t) {
+      const int s = t & 1;
+      if (t >= 2) group_sync(kFreeBar + s, kPipeThreads);  // step t-2's problem has left
+      if (tid == 0) prob[s] = b;
+      if (b >= B) break;
+      const long long slot = 2LL * g + s;
+      const int end = n_cand[b] - 1;
+      const int ws = wsum[b], wm = wmax[b];
+      for (int k = 1; k <= end; ++k)
+        pair_stats_mma_body<kSlots>(Cs + (long long)b * P * R, Thi + b * PP, Tlo + b * PP,
+                                    Wt + (long long)b * R, ws, wm, OT + slot * PPP,
+                                    INS + slot * PP, k, end, P, R, read_support, tid,
+                                    kProducerBar, pair);
+      if (tid == 0) next[s] = G + atomicAdd(queue, 1);
+      // next[s] is written again two steps on, past the next step's barrier
+      group_sync(kProducerBar, kMmaThreads);
+      b = next[s];
+      group_arrive(kFullBar + s, kPipeThreads);
     }
-    __syncthreads();  // slot t % 2 is complete; slot (t-1) % 2 is free
+    group_arrive(kFullBar + (t & 1), kPipeThreads);
+    // The consumer arrives at "free" after every problem; the step loop
+    // waited for all but the last.
+    if (t >= 1) group_sync(kFreeBar + ((t - 1) & 1), kPipeThreads);
+  } else {
+    if (kSlots == kTile) reg_release<kConsumerRegs>();
+    for (int t = 0;; ++t) {
+      const int s = t & 1;
+      group_sync(kFullBar + s, kPipeThreads);
+      const int b = prob[s];
+      if (b >= B) break;
+      const long long slot = 2LL * g + s;
+      wavefront_body(OT + slot * PPP, INS + slot * PP, y + (long long)b * P, n_cand[b],
+                     K + b * PP, best_j + b, best_k + b, chains + (long long)b * (P + 2),
+                     P, H, ys, tid - kMmaThreads, kConsumerWarps, kConsumerBar);
+      group_arrive(kFreeBar + s, kPipeThreads);
+    }
   }
 }
 

@@ -18,10 +18,21 @@ bounds each on the H100 in ``csrc/segdp_kernels.cuh``):
   H in shared memory, which ends by walking each problem's breakpoint
   chain (``with_chains``), so the dispatch launches nothing after it.
 - K2 (``pipelined=True``; replaces ``segdp_pallas.py:_kernel_pipelined``):
-  one persistent, warp-specialised launch in which each block's producer
-  warps compute one problem's pair statistics while its consumer warps
-  run the previous problem's wavefront, through two scratch slots per
-  block in global memory.
+  one persistent, warp-specialised launch of as many blocks as the card
+  holds at once (two of 12 warps per SM at P <= 64, one above). In each
+  block two producer warpgroups run K1's phase-1 body (the tensor-core
+  contraction, live entries only) over k = 1..n_cand-1 of one problem
+  after another, into two scratch slots in global memory, while one
+  consumer warpgroup runs the wavefront, the argmax and the chain walk on
+  the slot that is full. The slots change hands through per-slot "full"
+  and "free" named barriers, never a block-wide one, and the blocks draw
+  their problems from a counter on the card. Bound like K1's
+  phase 1, by instruction issue in the indicator build. A block's shared
+  memory holds the phase-1 slots beside H, so K2 takes P <= ``K2_MAX_P``
+  and raises above it.
+
+Both kernels return the chains themselves (``with_chains``); on the card
+nothing is launched after them.
 
 The wrapper takes the plain version (``_solve_batch_torch``) only for
 tensors that lie on the CPU. For CUDA tensors it launches the chosen
@@ -46,8 +57,14 @@ PIPELINED_LAUNCHES = 0
 _BLOCK_SMEM = 232_448
 _MAX_SMEM = _BLOCK_SMEM - 256  # less the wavefront's static reduction scratch
 
-# K2 blocks each device holds at once, by (device index, P).
-_PIPE_BLOCKS: dict[tuple[int, int], int] = {}
+# What the runtime reports for K2, by (device index, P): SMs, blocks an SM
+# holds at once, registers per thread, shared memory per block.
+_PIPE_BLOCKS: dict[tuple[int, int], tuple[int, int, int, int]] = {}
+
+# The widest problem K2 takes: above it one block's phase-1 slots
+# (PairSmem<128>, 107,520 B), H (4 P^2 B) and ys do not fit _BLOCK_SMEM.
+# The dispatch's P buckets are multiples of 32, so 160 is the widest in use.
+K2_MAX_P = 176
 
 
 def _lib() -> ctypes.CDLL:
@@ -60,14 +77,14 @@ def _lib() -> ctypes.CDLL:
     lib.segdp_solve.restype = ctypes.c_int
     lib.segdp_wavefront_smem.argtypes = [ctypes.c_int]
     lib.segdp_wavefront_smem.restype = ctypes.c_size_t
-    lib.segdp_solve_pipelined.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [
+    lib.segdp_solve_pipelined.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 5 + [
         ctypes.c_void_p
     ]
     lib.segdp_solve_pipelined.restype = ctypes.c_int
     lib.segdp_pipelined_smem.argtypes = [ctypes.c_int]
     lib.segdp_pipelined_smem.restype = ctypes.c_size_t
-    lib.segdp_pipelined_blocks.argtypes = [ctypes.c_int, ctypes.c_void_p]
-    lib.segdp_pipelined_blocks.restype = ctypes.c_int
+    lib.segdp_pipelined_occupancy.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    lib.segdp_pipelined_occupancy.restype = ctypes.c_int
     lib.segdp_error_string.argtypes = [ctypes.c_int]
     lib.segdp_error_string.restype = ctypes.c_char_p
     return lib
@@ -89,24 +106,36 @@ def _raise_on(lib, err: int, what: str) -> None:
         raise RuntimeError(f"{what} failed: {lib.segdp_error_string(err).decode()}")
 
 
-def pipelined_grid(B: int, P: int) -> int:
-    """K2's number of blocks for B problems at width P on the current
-    device: as many as the card holds at once, at most B. The card's
-    figure is queried once per (device, P); ``solve_batch_cuda`` asks
-    under ``torch.cuda.device`` of its tensors, so on any card the key and
-    the query (through the context torch made current) name that card."""
+def pipelined_occupancy(P: int) -> dict[str, int]:
+    """What the runtime reports for K2 at width P on the current device:
+    ``sms``, ``blocks_per_sm`` (resident at once), ``registers`` per thread
+    and ``smem_bytes`` per block (static + dynamic). Queried once per
+    (device, P); ``solve_batch_cuda`` asks under ``torch.cuda.device`` of
+    its tensors, so on any card the key and the query (through the context
+    torch made current) name that card. Raises ValueError for P above
+    ``K2_MAX_P``: such a block's shared memory does not fit, and nothing
+    falls back."""
     key = (torch.cuda.current_device(), P)
     if key not in _PIPE_BLOCKS:
         lib = _lib()
         smem = lib.segdp_pipelined_smem(P)
-        if not 0 < smem <= _BLOCK_SMEM:
-            raise ValueError(f"P={P}: a K2 block needs {smem} B of shared memory "
-                             f"(the card gives at most {_BLOCK_SMEM} B)")
-        blocks = ctypes.c_int(0)
-        _raise_on(lib, lib.segdp_pipelined_blocks(P, ctypes.addressof(blocks)),
+        if P > K2_MAX_P or not 0 < smem <= _BLOCK_SMEM:
+            raise ValueError(f"P={P}: a K2 block needs {smem} B of shared memory (the "
+                             f"pair statistics' slots, H and ys; the card gives at most "
+                             f"{_BLOCK_SMEM} B): K2 takes P <= {K2_MAX_P}")
+        out = (ctypes.c_int * 4)()
+        _raise_on(lib, lib.segdp_pipelined_occupancy(P, ctypes.addressof(out)),
                   "K2 occupancy query")
-        _PIPE_BLOCKS[key] = blocks.value
-    return min(B, _PIPE_BLOCKS[key])
+        _PIPE_BLOCKS[key] = tuple(out)
+    return dict(zip(("sms", "blocks_per_sm", "registers", "smem_bytes"), _PIPE_BLOCKS[key]))
+
+
+def pipelined_grid(B: int, P: int) -> int:
+    """K2's number of blocks for B problems at width P on the current
+    device: as many as the card holds at once, at most B. Raises ValueError
+    for P above ``K2_MAX_P``."""
+    occ = pipelined_occupancy(P)
+    return min(B, occ["sms"] * occ["blocks_per_sm"])
 
 
 def _pipelined_scratch(B: int, P: int, dev):
@@ -124,7 +153,7 @@ def _pipelined_scratch(B: int, P: int, dev):
     return G, OT, INS
 
 
-# Reps per shared-memory stage of K1's phase 1 (kMmaStage in the .cuh):
+# Reps per shared-memory stage of phase 1 (kMmaStage in the .cuh):
 # the kernels take R as a multiple of it.
 REP_STAGE = 64
 
@@ -157,8 +186,9 @@ def solve_batch_cuda(C, y, W, n_cand, read_support, lookup, scale, pipelined=Fal
     ``_kernel_pipelined`` there. Both kernels are exact for every weight
     (K1 splits wide weights into limbs itself), so they take no
     ``wide_weights`` flag. ``with_chains`` appends the (B, P+2)
-    -1-terminated breakpoint chains to the result: K1 walks them in its
-    wavefront launch; the CPU route and K2 take ``_walk_chains``."""
+    -1-terminated breakpoint chains to the result: both kernels walk them
+    themselves; the CPU route takes ``_walk_chains``. K2 raises ValueError
+    for P above ``K2_MAX_P``."""
     global LAUNCHES, PIPELINED_LAUNCHES
     if C.device.type == "cpu":
         res = _solve_batch_torch(C, y, W, n_cand, read_support, lookup, scale)
@@ -185,21 +215,22 @@ def solve_batch_cuda(C, y, W, n_cand, read_support, lookup, scale, pipelined=Fal
     K = torch.empty((B, P, P), dtype=torch.int32, device=dev)
     best_j = torch.empty((B,), dtype=torch.int32, device=dev)
     best_k = torch.empty((B,), dtype=torch.int32, device=dev)
-    chains = None
+    chains = torch.empty((B, P + 2), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if pipelined:
             G, OT, INS = _pipelined_scratch(B, P, dev)
+            queue = torch.zeros(1, dtype=torch.int32, device=dev)  # the blocks' work counter
             err = lib.segdp_solve_pipelined(
                 Cs.data_ptr(), T_hi.data_ptr(), T_lo.data_ptr(), Wi.data_ptr(),
-                w_sum.data_ptr(), y.data_ptr(), n_cand.data_ptr(), OT.data_ptr(),
-                INS.data_ptr(), K.data_ptr(), best_j.data_ptr(), best_k.data_ptr(),
+                w_sum.data_ptr(), w_max.data_ptr(), y.data_ptr(), n_cand.data_ptr(),
+                OT.data_ptr(), INS.data_ptr(), K.data_ptr(), best_j.data_ptr(),
+                best_k.data_ptr(), chains.data_ptr(), queue.data_ptr(),
                 B, P, R, int(read_support), G, stream,
             )
         else:
             OT = torch.empty((B, P, P, P), dtype=torch.float32, device=dev)
             INS = torch.empty((B, P, P), dtype=torch.float32, device=dev)
-            chains = torch.empty((B, P + 2), dtype=torch.int32, device=dev)
             err = lib.segdp_solve(
                 Cs.data_ptr(), T_hi.data_ptr(), T_lo.data_ptr(), Wi.data_ptr(),
                 w_sum.data_ptr(), w_max.data_ptr(), y.data_ptr(), n_cand.data_ptr(),
@@ -211,8 +242,4 @@ def solve_batch_cuda(C, y, W, n_cand, read_support, lookup, scale, pipelined=Fal
         PIPELINED_LAUNCHES += 1
     else:
         LAUNCHES += 1
-    if not with_chains:
-        return K, best_j, best_k
-    if chains is None:
-        chains = _walk_chains(K, best_j, best_k)
-    return K, best_j, best_k, chains
+    return (K, best_j, best_k, chains) if with_chains else (K, best_j, best_k)

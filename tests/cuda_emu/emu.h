@@ -4,18 +4,23 @@
 //
 // One std::thread per CUDA thread; __syncthreads is a block-wide
 // std::barrier; a named barrier (group_sync, PTX bar.sync id, n) is one
-// std::barrier per (id, thread count); __shfl_xor_sync exchanges through
+// std::barrier per (id, thread count), at which group_arrive (bar.arrive)
+// arrives without waiting; atomicAdd is a fetch_add and setmaxnreg a
+// no-op; __shfl_xor_sync exchanges through
 // per-warp slots between two warp barriers, and so do the fragments of the
 // tensor-core step (mma_m16n8k32_s8); cp.async copies at once. Blocks run
-// one after another,
-// so function-static
-// arrays (what __shared__ becomes here) serve as shared memory, and the
+// one after another (so the first block that draws from a work queue
+// drains it), and function-static arrays (what __shared__ becomes here) serve as shared memory, and the
 // dynamic shared memory is one global buffer filled with garbage before
 // every block, as the card leaves it.
 #pragma once
 
+#include <atomic>
 #include <barrier>
+#include <chrono>
 #include <cmath>
+#include <cstdio>
+#include <cstdlib>
 #include <cstring>
 #include <map>
 #include <memory>
@@ -64,18 +69,42 @@ inline void __syncthreads() { emu_block_bar->arrive_and_wait(); }
 inline std::mutex emu_named_mu;
 inline std::map<std::pair<int, int>, std::unique_ptr<std::barrier<>>> emu_named;
 
-// bar.sync id, nthreads: waits until nthreads threads have arrived at
-// barrier id. The map is cleared before each launch.
-inline void group_sync(int id, int nthreads) {
-  std::barrier<>* bar;
-  {
-    std::lock_guard<std::mutex> lock(emu_named_mu);
-    auto& slot = emu_named[{id, nthreads}];
-    if (!slot) slot = std::make_unique<std::barrier<>>(nthreads);
-    bar = slot.get();
-  }
-  bar->arrive_and_wait();
+// EMU_STALL="id:ms" in the environment makes every thread sleep ms
+// milliseconds before each group_sync on barrier id: a way to run one
+// group of warps far behind another and so to walk a hand-off through the
+// schedules a fast group never shows. Read at each launch.
+inline int emu_stall_id = -1, emu_stall_ms = 0;
+
+// The barrier that `nthreads` threads share under `id`; the map is cleared
+// before each launch.
+inline std::barrier<>* emu_named_barrier(int id, int nthreads) {
+  std::lock_guard<std::mutex> lock(emu_named_mu);
+  auto& slot = emu_named[{id, nthreads}];
+  if (!slot) slot = std::make_unique<std::barrier<>>(nthreads);
+  return slot.get();
 }
+
+// bar.sync id, nthreads: waits until nthreads threads have arrived at
+// barrier id, by group_sync or group_arrive.
+inline void group_sync(int id, int nthreads) {
+  if (id == emu_stall_id) std::this_thread::sleep_for(std::chrono::milliseconds(emu_stall_ms));
+  emu_named_barrier(id, nthreads)->arrive_and_wait();
+}
+
+// bar.arrive id, nthreads: counts as one arrival and goes on. An arrival
+// releases what the thread wrote before, as the kernel's fence does.
+inline void group_arrive(int id, int nthreads) {
+  (void)emu_named_barrier(id, nthreads)->arrive();
+}
+
+// setmaxnreg moves registers between warpgroups: nothing to do here.
+template <int N>
+void reg_release() {}
+template <int N>
+void reg_take() {}
+
+// atomicAdd on an int in global memory: the old value.
+inline int atomicAdd(int* p, int v) { return std::atomic_ref<int>(*p).fetch_add(v); }
 
 template <class T>
 T __shfl_xor_sync(unsigned, T v, int lane_mask) {
@@ -136,6 +165,8 @@ void emu_launch(dim3 grid, int threads, F body) {
   blockDim = dim3(threads);
   emu_block_bar = std::make_unique<std::barrier<>>(threads);
   emu_named.clear();
+  if (const char* stall = std::getenv("EMU_STALL"))
+    std::sscanf(stall, "%d:%d", &emu_stall_id, &emu_stall_ms);
   for (int w = 0; w < threads / 32; ++w)
     emu_warps[w].bar = std::make_unique<std::barrier<>>(32);
   std::vector<std::thread> ts;

@@ -5,7 +5,7 @@
 //
 //   segdp_emu B P R read_support [G]
 //   in:  Cs.bin Thi.bin Tlo.bin W.bin wsum.bin wmax.bin y.bin n.bin
-//   out: K.bin bj.bin bk.bin, and K1's chains.bin, OT.bin and INS.bin (its
+//   out: K.bin bj.bin bk.bin chains.bin, and K1's OT.bin and INS.bin (its
 //        scratch, of which only the live entries are defined)
 #include <cstdio>
 #include <cstdlib>
@@ -39,6 +39,7 @@ int main(int argc, char** argv) {
   const int R = std::atoi(argv[3]), rs = std::atoi(argv[4]);
   const int G = argc == 6 ? std::atoi(argv[5]) : 0;  // 0: K1
   if (G < 0 || G > B) return 2;
+  if (R % segdp::kMmaStage != 0) return 2;  // the wrapper pads the reps
   const size_t BP = (size_t)B * P, BPP = BP * P;
   auto Cs = load<int>("Cs.bin", BP * R);
   auto Thi = load<int>("Thi.bin", BPP);
@@ -52,7 +53,6 @@ int main(int argc, char** argv) {
   std::vector<int> K(BPP, 777), bj(B, 777), bk(B, 777), chains((size_t)B * (P + 2), 777);
   if (G == 0) {
     std::vector<float> OT(BPP * P, 12345.f), INS(BPP, 12345.f);
-    if (R % segdp::kMmaStage != 0) return 2;  // the wrapper pads the reps
     emu_launch(dim3(P, B), segdp::kMmaThreads, [&] {
       if (P <= segdp::kTile)
         segdp::pair_stats_kernel<segdp::kTile>(Cs.data(), Thi.data(), Tlo.data(), W.data(),
@@ -67,19 +67,26 @@ int main(int argc, char** argv) {
       segdp::wavefront_kernel(OT.data(), INS.data(), y.data(), n.data(),
                               K.data(), bj.data(), bk.data(), chains.data(), P);
     });
-    store("chains.bin", chains);
     store("OT.bin", OT);
     store("INS.bin", INS);
   } else {
     const size_t slots = 2 * (size_t)G * P * P;
     std::vector<float> OT(slots * P, 12345.f), INS(slots, 12345.f);
+    int queue = 0;  // the blocks' work counter
     emu_launch(dim3(G), segdp::kPipeThreads, [&] {
-      segdp::segdp_pipelined_kernel(Cs.data(), Thi.data(), Tlo.data(), W.data(),
-                                    wsum.data(), y.data(), n.data(), OT.data(),
-                                    INS.data(), K.data(), bj.data(), bk.data(),
-                                    B, P, R, rs);
+      if (P <= segdp::kTile)
+        segdp::segdp_pipelined_kernel<segdp::kTile>(
+            Cs.data(), Thi.data(), Tlo.data(), W.data(), wsum.data(), wmax.data(), y.data(),
+            n.data(), OT.data(), INS.data(), K.data(), bj.data(), bk.data(), chains.data(),
+            &queue, B, P, R, rs);
+      else
+        segdp::segdp_pipelined_kernel<2 * segdp::kTile>(
+            Cs.data(), Thi.data(), Tlo.data(), W.data(), wsum.data(), wmax.data(), y.data(),
+            n.data(), OT.data(), INS.data(), K.data(), bj.data(), bk.data(), chains.data(),
+            &queue, B, P, R, rs);
     });
   }
+  store("chains.bin", chains);
   store("K.bin", K);
   store("bj.bin", bj);
   store("bk.bin", bk);

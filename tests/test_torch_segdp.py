@@ -53,7 +53,9 @@ def test_plain_matches_xla_and_pallas(wide):
 def test_pipelined_entry_matches_pallas_pipelined(wide):
     """solve_batch_cuda(pipelined=True) on CPU tensors (the plain version
     beside K2) == solve_batch_pallas(pipelined=True) and the standard
-    Pallas kernel, on the inputs of tests/test_segdp.py's pipelined test."""
+    Pallas kernel, on the inputs of tests/test_segdp.py's pipelined test;
+    with_chains appends the chains that the JAX _walk_chains walks from
+    the pipelined Pallas result."""
     from freddie_tpu_torch.ops.segdp_cuda import solve_batch_cuda
 
     rng = np.random.default_rng(23 if wide else 29)
@@ -65,10 +67,12 @@ def test_pipelined_entry_matches_pallas_pipelined(wide):
     want = [solve_batch_pallas(*args, 3, lookup, thr.scale, interpret=True,
                                wide_weights=wide, pipelined=pipe)
             for pipe in (True, False)]
-    Kt, bjt, bkt = solve_batch_cuda(
-        torch.from_numpy(C), torch.from_numpy(y), torch.from_numpy(W),
-        torch.from_numpy(n_cand), 3, torch.from_numpy(thr.lookup), thr.scale,
-        pipelined=True)
+    targs = (torch.from_numpy(C), torch.from_numpy(y), torch.from_numpy(W),
+             torch.from_numpy(n_cand), 3, torch.from_numpy(thr.lookup), thr.scale)
+    Kt, bjt, bkt = solve_batch_cuda(*targs, pipelined=True)
+    Kc, bjc, bkc, chains = solve_batch_cuda(*targs, pipelined=True, with_chains=True)
+    assert torch.equal(Kc, Kt) and torch.equal(bjc, bjt) and torch.equal(bkc, bkt)
+    np.testing.assert_array_equal(np.asarray(jseg._walk_chains(*want[0])), chains.numpy())
     for Kp, bjp, bkp in want:
         np.testing.assert_array_equal(np.asarray(bjp), bjt.numpy())
         np.testing.assert_array_equal(np.asarray(bkp), bkt.numpy())

@@ -123,8 +123,9 @@ def test_k1_live_tiles_limbs_gate_and_chains(cuda_device, case, tf32):
 def test_pipelined_kernel_matches_k1_and_plain(cuda_device, B, P, R, wide):
     """solve_batch_cuda(pipelined=True) runs K2 in one launch and equals K1
     and _solve_batch_torch: K rows 0..P-2, best_j, best_k bit-equal, K's
-    last row (best_j, best_k). B=1 is one block with one problem; B=401
-    has blocks that own two problems or more."""
+    last row (best_j, best_k), and its chains equal to K1's and to
+    _walk_chains. B=1 is one block with one problem; B=401 has blocks that
+    get two problems or more."""
     from freddie_tpu_torch.ops import segdp_cuda
 
     rng = np.random.default_rng(B + P + R + wide)
@@ -134,15 +135,82 @@ def test_pipelined_kernel_matches_k1_and_plain(cuda_device, B, P, R, wide):
     lookup = torch.from_numpy(thr.lookup).to(cuda_device)
     args = (t["C"], t["y"], t["W"], t["n_cand"], 3, lookup, thr.scale)
     before = (segdp_cuda.LAUNCHES, segdp_cuda.PIPELINED_LAUNCHES)
-    K2, bj2, bk2 = segdp_cuda.solve_batch_cuda(*args, pipelined=True)
+    K2, bj2, bk2, chains2 = segdp_cuda.solve_batch_cuda(*args, pipelined=True,
+                                                        with_chains=True)
     assert (segdp_cuda.LAUNCHES, segdp_cuda.PIPELINED_LAUNCHES) == (before[0], before[1] + 1)
-    K1, bj1, bk1 = segdp_cuda.solve_batch_cuda(*args)
+    K1, bj1, bk1, chains1 = segdp_cuda.solve_batch_cuda(*args, with_chains=True)
     Kt, bjt, bkt = tseg._solve_batch_torch(*args)
     torch.cuda.synchronize()
     for Kr, bjr, bkr in ((K1, bj1, bk1), (Kt, bjt, bkt)):
         assert torch.equal(bj2, bjr) and torch.equal(bk2, bkr)
         assert torch.equal(K2[:, : P - 1], Kr[:, : P - 1])
     assert torch.equal(K2[:, P - 1, 0], bj2) and torch.equal(K2[:, P - 1, 1], bk2)
+    assert torch.equal(chains2, chains1)
+    assert torch.equal(chains2, tseg._walk_chains(Kt, bjt, bkt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    dict(B=300, P=64, R=384, short=True),  # n_cand far below P: most k dead
+    dict(B=300, P=32, R=96, wide=True, scale_w=300),  # three 7-bit limbs
+    dict(B=40, P=16, R=6, scale_w=2**19),  # four limbs, a ragged stage
+    dict(B=600, P=32, R=256, rs=1), dict(B=40, P=32, R=256, rs=40),  # the gate low and high
+    dict(B=5, P=160, R=128),  # the widest bucket K2 takes
+], ids=lambda c: "-".join(f"{k}{v}" for k, v in c.items()))
+def test_k2_live_k_limbs_gate_and_chains(cuda_device, case):
+    """The redesigned K2 against K1 and the plain version at candidate
+    counts below P, wide weights, read_support at both ends and the widest
+    P, with more problems than blocks where the batch is large."""
+    from freddie_tpu_torch.ops import segdp_cuda
+
+    B, P, R = case["B"], case["P"], case["R"]
+    rs, scale_w, short = case.get("rs", 3), case.get("scale_w", 1), case.get("short", False)
+    rng = np.random.default_rng(P * 3 + R + rs)
+    thr = ScaledThresholds(0.9)
+    C, y, W, n_cand = padded_batch(rng, B, max(6, P // 3) if short else P, R,
+                                   case.get("wide", False))
+    pad = P - C.shape[1]
+    C = np.concatenate([C, np.repeat(C[:, -1:], pad, axis=1)], axis=1)
+    y = np.concatenate([y, np.repeat(y[:, -1:], pad, axis=1)], axis=1)
+    W = W * scale_w
+    assert W.sum(1).max() < 2**24, "scores must stay exact in float32"
+    t = tseg.to_device(dict(C=C, y=y, W=W, n_cand=n_cand), cuda_device)
+    lookup = torch.from_numpy(thr.lookup).to(cuda_device)
+    args = (t["C"], t["y"], t["W"], t["n_cand"], rs, lookup, thr.scale)
+    K2, bj2, bk2, chains2 = segdp_cuda.solve_batch_cuda(*args, pipelined=True,
+                                                        with_chains=True)
+    K1, bj1, bk1, chains1 = segdp_cuda.solve_batch_cuda(*args, with_chains=True)
+    Kt, bjt, bkt = tseg._solve_batch_torch(*args)
+    torch.cuda.synchronize()
+    for Kr, bjr, bkr in ((K1, bj1, bk1), (Kt, bjt, bkt)):
+        assert torch.equal(bj2, bjr) and torch.equal(bk2, bkr)
+        assert torch.equal(K2[:, : P - 1], Kr[:, : P - 1])
+    assert torch.equal(chains2, chains1)
+    assert torch.equal(chains2, tseg._walk_chains(Kt, bjt, bkt))
+    assert (bjt >= 0).any(), "no problem segmented: the case is vacuous"
+
+
+@pytest.mark.cuda
+def test_k2_refuses_a_width_past_its_shared_memory(cuda_device):
+    """Above K2_MAX_P a K2 block's shared memory does not fit: the wrapper
+    raises and does not fall back; K1 takes the same batch."""
+    from freddie_tpu_torch.ops import segdp_cuda
+
+    P = 192
+    assert P > segdp_cuda.K2_MAX_P
+    rng = np.random.default_rng(P)
+    thr = ScaledThresholds(0.9)
+    C, y, W, n_cand = padded_batch(rng, 2, P, 64, False)
+    t = tseg.to_device(dict(C=C, y=y, W=W, n_cand=n_cand), cuda_device)
+    lookup = torch.from_numpy(thr.lookup).to(cuda_device)
+    args = (t["C"], t["y"], t["W"], t["n_cand"], 3, lookup, thr.scale)
+    before = segdp_cuda.PIPELINED_LAUNCHES
+    with pytest.raises(ValueError, match=f"P <= {segdp_cuda.K2_MAX_P}"):
+        segdp_cuda.solve_batch_cuda(*args, pipelined=True)
+    assert segdp_cuda.PIPELINED_LAUNCHES == before
+    K1, bj1, bk1 = segdp_cuda.solve_batch_cuda(*args)
+    Kt, bjt, bkt = tseg._solve_batch_torch(*args)
+    assert torch.equal(bj1, bjt) and torch.equal(K1[:, : P - 1], Kt[:, : P - 1])
 
 
 @pytest.mark.cuda

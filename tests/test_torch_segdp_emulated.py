@@ -7,15 +7,19 @@ ragged P and R and the multi-tile (P > 64) path: K1's two launches (the
 live-tile pair statistics, whose tensor-core step and asynchronous copies
 the stand-in implements in plain C++ with the documented fragment
 layout, then the wavefront with its chain walk), and K2's one
-warp-specialised launch at grid sizes where a block owns one problem,
-several, or all of them. The scratch starts as garbage, so an entry that
-K1 leaves unwritten and the wavefront reads would show. It checks the
+warp-specialised launch (the same two bodies in a producer and a consumer
+group with a per-slot hand-off) at grid sizes where a block gets one
+problem, several, or all of them, with either group stalled so that the
+hand-off is walked with the producer ahead and with the consumer ahead. The scratch starts as
+garbage, so an entry that phase 1 leaves unwritten and the wavefront
+reads would show. It checks the
 kernels' indexing, live-tile logic, weight limbs, masks, reductions, tie
-order and barriers, not their speed or anything
+order, barriers and hand-off, not their speed or anything
 the GPU compiler decides; ``tests/test_torch_segdp_cuda.py`` and
 ``chip_smoke.py`` check the real build on the card. Zero tolerance.
 """
 
+import os
 import pathlib
 import shutil
 import subprocess
@@ -27,6 +31,7 @@ import torch
 from freddie_tpu_torch.ops import segdp as tseg
 from freddie_tpu_torch.ops.segdp import ScaledThresholds
 from freddie_tpu_torch.ops.segdp_cuda import REP_STAGE, kernel_inputs
+from test_segdp import random_problem
 from test_torch_segdp_cuda import padded_batch
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -53,15 +58,38 @@ def emulator(tmp_path_factory):
     return exe
 
 
+def _full_short_batch(rng, B, P, R):
+    """Problems of P candidates and of 6..8 padded to P, two of each in
+    turn: with one block, each of K2's two scratch slots holds a full
+    problem, then a short one, then a full one."""
+    C = np.zeros((B, P, R), dtype=np.int32)
+    y = np.zeros((B, P), dtype=np.int32)
+    W = np.zeros((B, R), dtype=np.float32)
+    n_cand = np.zeros((B,), dtype=np.int32)
+    for b in range(B):
+        p = P if b % 4 < 2 else 6 + b % 3
+        pr = random_problem(rng, p, R)
+        C[b, :p], C[b, p:] = pr.C, pr.C[-1]
+        y[b, :p], y[b, p:] = pr.y, pr.y[-1]
+        W[b], n_cand[b] = pr.W, p
+    return C, y, W, n_cand
+
+
 def _run_and_check(emulator, tmp_path, B, P, R, wide, full, grid=(), rs=3, scale_w=1,
-                   short=False):
+                   short=False, full_short=False, stall=None):
     """Runs the emulated kernels on a random padded batch (K2 when
-    ``grid`` holds G) and holds them against _solve_batch_torch, and K1's
-    chains against _walk_chains. ``short``: few candidates in a wide
-    padding (dead blocks); ``scale_w``: weights past two 7-bit limbs."""
+    ``grid`` holds G) and holds them
+    against _solve_batch_torch, and their chains against _walk_chains.
+    ``short``: few candidates in a wide padding (dead blocks);
+    ``scale_w``: weights past two 7-bit limbs; ``full_short``: the batch of
+    _full_short_batch; ``stall``: "id:ms", every wait at named barrier id
+    delayed by ms milliseconds."""
     rng = np.random.default_rng(P * 7 + R + wide)
     thr = ScaledThresholds(0.9)
-    C, y, W, n_cand = padded_batch(rng, B, P if not short else max(6, P // 3), R, wide)
+    if full_short:
+        C, y, W, n_cand = _full_short_batch(rng, B, P, R)
+    else:
+        C, y, W, n_cand = padded_batch(rng, B, P if not short else max(6, P // 3), R, wide)
     if short:
         pad = P - C.shape[1]
         C = np.concatenate([C, np.repeat(C[:, -1:], pad, axis=1)], axis=1)
@@ -80,7 +108,8 @@ def _run_and_check(emulator, tmp_path, B, P, R, wide, full, grid=(), rs=3, scale
         np.ascontiguousarray(a.numpy(), dtype=np.int32).tofile(tmp_path / f"{name}.bin")
     subprocess.run([str(emulator), str(B), str(P), str(Cs.shape[2]), str(rs),
                     *map(str, grid)],
-                   cwd=tmp_path, check=True, capture_output=True, timeout=300)
+                   cwd=tmp_path, check=True, capture_output=True, timeout=300,
+                   env={**os.environ, **({"EMU_STALL": stall} if stall else {})})
     K = np.fromfile(tmp_path / "K.bin", np.int32).reshape(B, P, P)
     bj = np.fromfile(tmp_path / "bj.bin", np.int32)
     bk = np.fromfile(tmp_path / "bk.bin", np.int32)
@@ -91,9 +120,9 @@ def _run_and_check(emulator, tmp_path, B, P, R, wide, full, grid=(), rs=3, scale
     np.testing.assert_array_equal(bk, bkt.numpy())
     np.testing.assert_array_equal(K[:, : P - 1], Kt.numpy()[:, : P - 1])
     np.testing.assert_array_equal(K[:, P - 1, :2], np.stack([bj, bk], 1))
+    chains = np.fromfile(tmp_path / "chains.bin", np.int32).reshape(B, P + 2)
+    np.testing.assert_array_equal(chains, tseg._walk_chains(Kt, bjt, bkt).numpy())
     if not grid:
-        chains = np.fromfile(tmp_path / "chains.bin", np.int32).reshape(B, P + 2)
-        np.testing.assert_array_equal(chains, tseg._walk_chains(Kt, bjt, bkt).numpy())
         _check_live_scratch(tmp_path, C, y, W, n_cand, rs, thr)
 
 
@@ -153,3 +182,49 @@ def test_emulated_k1_live_tiles_limbs_and_gate(emulator, tmp_path, case):
 def test_emulated_pipelined_kernel_matches_plain(emulator, tmp_path, B, P, R, wide,
                                                  full, G):
     _run_and_check(emulator, tmp_path, B, P, R, wide, full, grid=(G,))
+
+
+# Named barriers of K2's two groups (kProducerBar, kConsumerBar in the .cuh).
+PRODUCER_BAR, CONSUMER_BAR = 1, 2
+
+
+@pytest.mark.parametrize("case", [
+    dict(B=3, P=32, R=64, wide=False, full=False, short=True, G=2),  # n_cand << P: dead k
+    dict(B=2, P=16, R=96, wide=True, full=False, scale_w=300, G=1),  # three weight limbs
+    dict(B=2, P=16, R=6, wide=False, full=True, scale_w=2**19, G=2),  # four limbs
+    dict(B=3, P=16, R=128, wide=False, full=False, rs=1, G=2),  # the gate at its lowest
+    dict(B=3, P=16, R=128, wide=False, full=False, rs=40, G=1),  # the gate above most sums
+    dict(B=2, P=16, R=97, wide=True, full=False, G=1),  # odd R: reps padded to a stage
+    dict(B=1, P=80, R=128, wide=True, full=False, G=1),  # two tiles per side, two limbs
+], ids=["short", "limbs3", "limbs4", "rs1", "rs40", "odd_R", "wide_P"])
+def test_emulated_k2_live_k_limbs_and_gate(emulator, tmp_path, case):
+    """K2 at what K1 is held to above: its producer is the same body over
+    k = 1..end, its chains come from the kernel."""
+    case = dict(case)
+    _run_and_check(emulator, tmp_path, case.pop("B"), case.pop("P"), case.pop("R"),
+                   case.pop("wide"), case.pop("full"), grid=(case.pop("G"),), **case)
+
+
+@pytest.mark.parametrize("case", [
+    # One block: each slot holds a full problem, a short one, a full one.
+    dict(B=6, P=16, R=64, G=1, full_short=True),
+    dict(B=6, P=16, R=64, G=1, full_short=True, stall=f"{CONSUMER_BAR}:4"),
+    dict(B=6, P=16, R=64, G=1, full_short=True, stall=f"{PRODUCER_BAR}:2"),
+    dict(B=6, P=40, R=64, G=1, full_short=True),  # the same with ragged tiles
+    # Blocks run in turn here, so block 0 draws problems 0, 3, 4, 5, 6
+    # from the queue and the others find it empty after their first.
+    dict(B=7, P=16, R=64, G=3),
+    dict(B=7, P=16, R=64, G=3, stall=f"{CONSUMER_BAR}:4"),
+    dict(B=7, P=16, R=64, G=3, stall=f"{PRODUCER_BAR}:2"),
+    dict(B=3, P=16, R=64, G=3),  # one problem a block: the end marker in slot 1
+    dict(B=3, P=72, R=40, G=2, full=True, stall=f"{CONSUMER_BAR}:2"),  # two tiles per side
+], ids=["reuse", "reuse_slow_consumer", "reuse_slow_producer", "reuse_ragged", "uneven",
+        "uneven_slow_consumer", "uneven_slow_producer", "one_each", "wide_P_slow_consumer"])
+def test_emulated_k2_handoff_slot_reuse_and_ownership(emulator, tmp_path, case):
+    """K2's hand-off: slots reused by problems of unlike size, blocks with
+    unequal numbers of problems, and either group held back so that the
+    other runs ahead of it."""
+    case = dict(case)
+    _run_and_check(emulator, tmp_path, case.pop("B"), case.pop("P"), case.pop("R"),
+                   case.pop("wide", False), case.pop("full", False),
+                   grid=(case.pop("G"),), **case)
