@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # everything below
     python3 chip_smoke.py --kernels  # phases 1 and 2 only, no result line
+    python3 chip_smoke.py --fuzz N   # everything, then N seed shifts of the fuzz
 
 Builds the segmentation-DP kernels from ``freddie_tpu_torch/csrc`` and,
 on the card:
@@ -24,7 +25,9 @@ on the card:
    and the port's two-phase solve on the card against the CPU, with the
    gates set so that the wide and the closure rung both run;
 4. drives the port's whole pipeline (split -> segment -> cluster ->
-   isoforms) over the 25,920-read benchmark corpus and checks that the
+   isoforms) over the 25,920-read benchmark corpus through the port's
+   benchmark (``freddie_tpu_torch.bench.segment.measure``, whose JSON line
+   it prints after ``[bench] ``) and checks that the
    DP really ran in K1, that the segment TSVs equal the host-oracle
    route's byte for byte, and how many simulated isoforms came back;
 5. holds the batched polyA scan on the card against the numpy twin and
@@ -35,9 +38,26 @@ on the card:
    shards): bit-equal to one K1 launch, and the production dispatch
    equal to the host oracle at B=5 and at the stage's buckets;
 7. runs the distributed pipeline in two gloo processes on card 0 and
-   the ``workflow`` CLI, each byte-identical to the pipeline of 4.
+   the ``workflow`` CLI, each byte-identical to the pipeline of 4;
+8. the widest bucket: a batch at P = 224 launched and bit-equal to the
+   plain version, chains included; problems of the P = 256 bucket through
+   the dispatch solved by the host oracle without a launch, the wrapper
+   still raising there; and ``segment --max-problem-size 250`` through
+   the CLI on a corpus with a 245-candidate problem, on the card and on
+   the CPU, byte-identical;
+9. the segment stage on the card with a stream window of 5 tints (forced
+   flushes of partial buckets), byte-identical to the run of 4;
+10. the entry points: ``entry(device)`` once and ``dryrun_multichip(4)``
+    over the card listed four times (and over the real cards when there
+    are several);
+11. the tools at a small size: ``bound_device_experiment`` on a two-point
+    grid, ``profile_kernel_phases`` at (64, 64, 384), the weak-scaling
+    mode of ``parallel.bench`` over the card listed 1, 2, 4 times,
+    ``warm_kernels``;
+12. with ``--fuzz N``: N seed shifts of the parity suite's three corpora,
+    the device route against the host-oracle route.
 
-K1's launch count in the kernel table sums the runs of 4-7, each read
+K1's launch count in the kernel table sums the runs of 4-10, each read
 with the count set to zero just before it; the line before the card's
 name gives each path's own count. No phase imports JAX. Details go to earlier lines; the line before the
 last is the kernel table as JSON, the last line ``{"ok": true,
@@ -47,15 +67,19 @@ line; so does a machine with no GPU.
 
 from __future__ import annotations
 
+import argparse
 import filecmp
 import json
 import os
 import shutil
-import statistics
 import subprocess
 import sys
 import tempfile
 import time
+
+from freddie_tpu_torch.bench.common import (
+    KERNEL_SHAPE, STAGE_SHAPES, TIMED_REPS, bound_ms, card_line, same_tsvs, synthetic_batch,
+    time_ms)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -63,97 +87,15 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # (16, 128), (32, 512), (64, 512) -- min(suggested_batch_size, 512)
 # rounded down to a power of two -- then the three launches the stage
 # makes on the benchmark corpus, then the kernel benchmark of bench.py.
-CHUNK_SHAPES = [
-    (512, 16, 128), (256, 32, 512), (64, 64, 512),
-    (512, 16, 384), (64, 32, 384), (64, 64, 384),
-]
-BENCH_SHAPE = (2048, 64, 512)
+CHUNK_SHAPES = [(512, 16, 128), (256, 32, 512), (64, 64, 512)] + STAGE_SHAPES
+BENCH_SHAPE = KERNEL_SHAPE
 # K2 only: a lone block with one problem, and G+3 problems (blocks that
 # own two), at (P, R) = (32, 512); G is K2's grid on this card.
 PIPE_P_R = (32, 512)
-TIMED_REPS = 5
 
 
 def log(*args):
     print(*args, flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
-def synthetic_batch(rng, B, P, R, wide, short=False):
-    """Padded DP batch with varied candidate counts (P/2..P, or 3..P/4 when
-    ``short``): monotone coverage with plateaus and jumps
-    (tests/test_segdp.py), sorted positions, weights 1..4 times ``wide``
-    when it is a number, x97 (past the 7-bit range) when it is True."""
-    import numpy as np
-
-    inc = rng.integers(0, 12, size=(B, P, R))
-    inc[rng.random(size=(B, P, R)) < 0.5] = 0
-    C = np.cumsum(inc, axis=1).astype(np.int32)
-    y = np.sort(rng.integers(1, 20_000, size=(B, P)), axis=1).astype(np.int32)
-    y[:, 0] = 0
-    lo, hi = (3, max(4, P // 4)) if short else (max(3, P // 2), P)
-    n_cand = rng.integers(lo, hi + 1, size=B).astype(np.int32)
-    for b in range(B):
-        n = n_cand[b]
-        C[b, n:] = C[b, n - 1]
-        y[b, n:] = y[b, n - 1]
-    factor = 97 if wide is True else (int(wide) or 1)
-    W = rng.integers(1, 5, size=(B, R)).astype(np.float32) * factor
-    if W.sum(axis=1).max() >= 2**24:
-        raise ValueError("weights too large: scores must stay exact in float32")
-    return dict(C=C, y=y, W=W, n_cand=n_cand)
-
-
-# Published peaks of one H100 SXM (NVIDIA's data sheet): device memory
-# rate and dense int8 tensor-core rate, which the pair contraction's
-# s8 x s8 -> s32 products run at.
-HBM_BYTES_PER_S = 3.35e12
-INT8_OPS_PER_S = 1979e12
-
-
-def bound_ms(t, P: int) -> tuple[float, str, float, float]:
-    """The least time the card could take for one solve_batch call on the
-    batch ``t``: the larger of its bytes (C, y, W, n_cand read once; K,
-    best_j, best_k and the chains written once) over the memory rate and
-    its operations over the int8 peak. The operations are those this
-    batch's data needs: per problem with n candidates, the C(n, 3) live
-    triples j < k < k_ of the pair contraction, 2R multiply-adds each.
-    Returns (bound, "bytes" or "operations", the bytes' time, the
-    operations' time), in ms."""
-    B, _P, R = t["C"].shape
-    read = sum(t[k].numel() * t[k].element_size() for k in ("C", "y", "W", "n_cand"))
-    written = 4 * (B * P * P + 2 * B + B * (P + 2))
-    n = t["n_cand"].to("cpu").double()
-    ops = float((n * (n - 1) * (n - 2) / 6).sum()) * 2 * R * 2
-    by_bytes = (read + written) / HBM_BYTES_PER_S * 1e3
-    by_ops = ops / INT8_OPS_PER_S * 1e3
-    which = "bytes" if by_bytes >= by_ops else "operations"
-    return max(by_bytes, by_ops), which, by_bytes, by_ops
-
-
-def time_ms(fn, reps=TIMED_REPS) -> float:
-    """Median CUDA-event time of one call, after one warm-up call."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        stop.record()
-        stop.synchronize()
-        times.append(start.elapsed_time(stop))
-    return statistics.median(times)
 
 
 def max_abs_diff(a, b, P: int) -> float:
@@ -255,13 +197,6 @@ def kernel_phase(dev, card) -> dict:
     }
 
 
-def _device_us(evt) -> float:
-    """A profiler event's total device time in microseconds (the
-    attribute's name differs between PyTorch versions)."""
-    total = getattr(evt, "device_time_total", None)
-    return total if total is not None else getattr(evt, "cuda_time_total", 0.0)
-
-
 def pipelined_path(dev, card) -> int:
     """K2's path, ``solve_batch_cuda(pipelined=True)``, driven once at the
     benchmark shape with every launch count at zero; its result is held
@@ -270,7 +205,8 @@ def pipelined_path(dev, card) -> int:
     K2; K1's two launches again at the segment stage's three shapes; the
     plain chain walk (_walk_chains) that both kernels' last phase replaces
     on the card; that K2's call with chains ends in its one kernel; what
-    the runtime reports for K2; and K2's tail (k2_tail). Returns K2's
+    the runtime reports for K2; and K2's tail. The profiles and the tail
+    are ``freddie_tpu_torch.tools.profile_kernel_phases``'s. Returns K2's
     launches in the driven run."""
     import numpy as np
     import torch
@@ -278,6 +214,7 @@ def pipelined_path(dev, card) -> int:
 
     from freddie_tpu_torch.ops import segdp_cuda
     from freddie_tpu_torch.ops.segdp import ScaledThresholds, _walk_chains, to_device
+    from freddie_tpu_torch.tools.profile_kernel_phases import device_ms_by_kernel, k2_tail
 
     thr = ScaledThresholds(0.9)
     t = to_device(synthetic_batch(np.random.default_rng(7), *BENCH_SHAPE, False), dev)
@@ -297,16 +234,9 @@ def pipelined_path(dev, card) -> int:
         f"{launches} K2 launch, 0 K1 launches; K, best_j, best_k equal to K1's")
 
     reps = 3
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            segdp_cuda.solve_batch_cuda(*args)
-            segdp_cuda.solve_batch_cuda(*args, pipelined=True)
-        torch.cuda.synchronize()
-    dev_ms = {}
-    for evt in prof.key_averages():
-        for name in ("pair_stats_kernel", "wavefront_kernel", "segdp_pipelined_kernel"):
-            if name in evt.key:
-                dev_ms[name] = dev_ms.get(name, 0.0) + _device_us(evt) / 1000.0 / reps
+    dev_ms = device_ms_by_kernel(
+        [lambda: segdp_cuda.solve_batch_cuda(*args),
+         lambda: segdp_cuda.solve_batch_cuda(*args, pipelined=True)], reps)
     if len(dev_ms) == 3:
         log(f"[pipelined] profiler device time per call at {BENCH_SHAPE}: K1 "
             f"pair_stats alone {dev_ms['pair_stats_kernel']:.3f} ms + wavefront "
@@ -321,17 +251,10 @@ def pipelined_path(dev, card) -> int:
     for shape in CHUNK_SHAPES[3:]:
         ts = to_device(synthetic_batch(np.random.default_rng(7), *shape, False), dev)
         sargs = (ts["C"], ts["y"], ts["W"], ts["n_cand"], 3, args[5], thr.scale)
-        segdp_cuda.solve_batch_cuda(*sargs)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                segdp_cuda.solve_batch_cuda(*sargs)
-            torch.cuda.synchronize()
-        k1_us = {name: sum(_device_us(e) for e in prof.key_averages() if name in e.key) / reps
-                 for name in ("pair_stats_kernel", "wavefront_kernel")}
+        k1_ms = device_ms_by_kernel([lambda: segdp_cuda.solve_batch_cuda(*sargs)], reps)
         log(f"[pipelined] profiler device time per call at {shape}: K1 pair_stats "
-            f"{k1_us['pair_stats_kernel'] / 1e3:.3f} ms + wavefront with the chain walk "
-            f"{k1_us['wavefront_kernel'] / 1e3:.3f} ms (mean of {reps}; 0.000: not measured) "
+            f"{k1_ms.get('pair_stats_kernel', 0.0):.3f} ms + wavefront with the chain walk "
+            f"{k1_ms.get('wavefront_kernel', 0.0):.3f} ms (mean of {reps}; 0.000: not measured) "
             f"on {card}")
     walk_ms = time_ms(lambda: _walk_chains(*ref))
     t0 = time.perf_counter()
@@ -366,39 +289,14 @@ def pipelined_path(dev, card) -> int:
         log(f"[pipelined] K2 at P={P}, as the runtime reports it: "
             f"{json.dumps(segdp_cuda.pipelined_occupancy(P))}, grid "
             f"{segdp_cuda.pipelined_grid(65535, P)}, on {card}")
-    k2_tail(dev, card, lookup=args[5], scale=thr.scale)
-    return launches
-
-
-def k2_tail(dev, card, lookup, scale) -> None:
-    """K2's whole call at B = G, 2G, 8G and 2048 problems of P=64, R=512 (G
-    its grid on this card) beside K1 and beside a step model: a block
-    takes about ceil(B/G) problems in turn, so T(B) = T(G) + (ceil(B/G) -
-    1) * p with the step p read off T(8G). What a measured time has above
-    the model is the tail: blocks that wait for the last one."""
-    import numpy as np
-    import torch
-
-    from freddie_tpu_torch.ops import segdp_cuda
-    from freddie_tpu_torch.ops.segdp import to_device
-
     _B, P, R = BENCH_SHAPE
-    G = segdp_cuda.pipelined_grid(65535, P)
-    sizes = (G, 2 * G, 8 * G, BENCH_SHAPE[0])
-    k1_ms, k2_ms = {}, {}
-    for B in sizes:
-        t = to_device(synthetic_batch(np.random.default_rng(B), B, P, R, False), dev)
-        args = (t["C"], t["y"], t["W"], t["n_cand"], 3, lookup, scale)
-        k1_ms[B] = time_ms(lambda: segdp_cuda.solve_batch_cuda(*args))
-        k2_ms[B] = time_ms(lambda: segdp_cuda.solve_batch_cuda(*args, pipelined=True))
-        del t, args
-        torch.cuda.empty_cache()
-    step = (k2_ms[8 * G] - k2_ms[G]) / 7
-    for B in sizes:
-        steps = -(-B // G)
-        log(f"[pipelined] K2 tail, B={B} (G={G}, {steps} steps) P={P} R={R}: "
-            f"{k2_ms[B]:.3f} ms, step model {k2_ms[G] + (steps - 1) * step:.3f} ms "
-            f"(step {step:.3f} ms); K1 {k1_ms[B]:.3f} ms (medians of {TIMED_REPS}), on {card}")
+    tail = k2_tail(dev, P, R, BENCH_SHAPE[0], args[5], thr.scale)
+    for r in tail["rows"]:
+        log(f"[pipelined] K2 tail, B={r['B']} (G={tail['G']}, {r['steps']} steps) P={P} R={R}: "
+            f"{r['k2_ms']:.3f} ms, step model {r['model_ms']:.3f} ms "
+            f"(step {tail['step_ms']:.3f} ms); K1 {r['k1_ms']:.3f} ms (medians of "
+            f"{TIMED_REPS}), on {card}")
+    return launches
 
 
 def cluster_phase(dev, card) -> None:
@@ -427,9 +325,10 @@ def cluster_phase(dev, card) -> None:
             t0 = time.perf_counter()
             got = tse.optimistic_device(inst, 1 << Mi, dev)
             dev_s = time.perf_counter() - t0
-            # Every mask at Mi = 21; a strided sample of 2^16 at Mi = 24,
-            # where the host's full pass would take minutes.
-            stride = 1 if Mi == 21 else (1 << Mi) >> 16
+            # Every mask at Mi = 21, N = 300; elsewhere a strided sample of
+            # 2^16, where the host's full pass would take most of a minute
+            # (Mi = 21, N = 1000) or several.
+            stride = 1 if (Mi, N) == (21, 300) else (1 << Mi) >> 16
             masks = np.arange(0, 1 << Mi, stride, dtype=np.uint64)
             t0 = time.perf_counter()
             want = host_bounds(tse._PerStructure(inst), masks)
@@ -517,110 +416,27 @@ def cluster_phase(dev, card) -> None:
         raise RuntimeError("jax was imported by the cluster bounds")
 
 
-def recovery(gtf: str, truth) -> tuple[int, int]:
-    """Truth isoforms recovered, by bench.py's criterion: a reported
-    transcript with the same exon count, internal boundaries within
-    2*junction_jitter+2 and ends within end_jitter+15."""
-    from freddie_tpu_torch.utils.sim import BENCH_CORPUS as SIM
+def pipeline_phase(dev, workdir: str):
+    """The port's pipeline on the card over the benchmark corpus, through
+    the port's benchmark (``bench.segment.measure``: the pipeline, three
+    hot segment runs, the host-oracle route and its byte-identity,
+    recovery, the kernel microbenchmarks; not its milder second corpus,
+    which drives no path the first does not); prints its JSON line after
+    ``[bench] ``. Returns the K1 launches of the pipeline run (read by the
+    benchmark with the counts at zero just before it) and where its inputs
+    and outputs are."""
+    from freddie_tpu_torch.bench import segment as bench
 
-    got: dict[str, list] = {}
-    with open(gtf) as f:
-        for line in f:
-            fields = line.split("\t")
-            if len(fields) > 4 and fields[2] == "exon":
-                tid = line.split('transcript_id "')[1].split('"')[0]
-                got.setdefault(tid, []).append((int(fields[3]), int(fields[4])))
-    chains = [sorted(v) for v in got.values()]
-    internal_tol = 2 * SIM["junction_jitter"] + 2
-    end_tol = SIM["end_jitter"] + 15
-
-    def matches(t, g):
-        if len(t) != len(g):
-            return False
-        tb = [b for ex in t for b in ex]
-        gb = [b for ex in g for b in ex]
-        return all(
-            abs(a - b) <= (end_tol if i in (0, len(tb) - 1) else internal_tol)
-            for i, (a, b) in enumerate(zip(tb, gb))
-        )
-
-    return sum(1 for t in truth if any(matches(list(t), g) for g in chains)), len(chains)
-
-
-def tsv_tree(root: str) -> list[str]:
-    return sorted(
-        os.path.relpath(os.path.join(d, f), root)
-        for d, _dirs, fns in os.walk(root) for f in fns if f.endswith(".tsv")
-    )
-
-
-def pipeline_phase(dev, workdir: str) -> int:
-    """The port's pipeline on the card over the benchmark corpus; returns
-    the K1 launches it made and where its inputs and outputs are."""
-    import torch
-
-    from freddie_tpu_torch.config import PipelineConfig, SegmentConfig
-    from freddie_tpu_torch.ops import segdp_cuda
-    from freddie_tpu_torch.stages.pipeline import run_pipeline
-    from freddie_tpu_torch.stages.segment import run_segment
-    from freddie_tpu_torch.utils.sim import BENCH_CORPUS, simulate
-
-    t0 = time.perf_counter()
-    sim = simulate(**BENCH_CORPUS)
-    bam, fq = os.path.join(workdir, "reads.bam"), os.path.join(workdir, "reads.fastq")
-    sim.write_bam(bam)
-    sim.write_fastq(fq)
-    truth = sorted(tuple(t.exons) for t in sim.transcripts)
-    log(f"[pipeline] simulated {len(sim.reads)} reads, {len(truth)} isoforms "
-        f"in {time.perf_counter() - t0:.2f} s")
-
-    out = os.path.join(workdir, "run")
-    segdp_cuda.LAUNCHES = 0
-    segdp_cuda.PIPELINED_LAUNCHES = 0
-    t0 = time.perf_counter()
-    stats = run_pipeline(bam, [fq], out, PipelineConfig(), log=log, device=dev)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = segdp_cuda.LAUNCHES
-    if launches <= 0:
-        raise RuntimeError("the pipeline's segment stage never launched the kernel")
+    result, run = bench.measure(
+        dev, workdir, log=lambda msg: log(msg.replace("[bench]", "[pipeline]", 1)),
+        mild=False)
     if "jax" in sys.modules:
         raise RuntimeError("jax was imported on the port's path")
-    stage_s = {k: v["seconds"] for k, v in stats.items() if isinstance(v, dict)}
-    log(f"[pipeline] stages (s): {json.dumps(stage_s)}; wall {wall:.3f} s; "
-        f"{launches} kernel launches")
-
-    seg_dir = os.path.join(out, "segment")
-    hot = []
-    for i in range(3):
-        d = os.path.join(workdir, f"segment_hot{i}")
-        t0 = time.perf_counter()
-        run_segment(os.path.join(out, "split"), d, SegmentConfig(), device=dev)
-        torch.cuda.synchronize()
-        hot.append(time.perf_counter() - t0)
-        shutil.rmtree(d)
-    host_dir = os.path.join(workdir, "segment_host")
-    t0 = time.perf_counter()
-    run_segment(os.path.join(out, "split"), host_dir, SegmentConfig(use_device=False),
-                device=dev)
-    host_s = time.perf_counter() - t0
-    names = tsv_tree(seg_dir)
-    if not names or names != tsv_tree(host_dir):
-        raise RuntimeError("segment TSV sets differ between the device and host routes")
-    differ = [n for n in names if not filecmp.cmp(
-        os.path.join(seg_dir, n), os.path.join(host_dir, n), shallow=False)]
-    if differ:
-        raise RuntimeError(f"segment TSVs differ from the host route: {differ[:5]}")
-    log(f"[pipeline] segment on the card: hot {min(hot):.3f} s (min of 3: "
-        f"{', '.join(f'{h:.3f}' for h in hot)}); host-oracle route {host_s:.3f} s; "
-        f"{len(names)} segment TSVs byte-identical")
-
-    matched, reported = recovery(stats["gtf"], truth)
-    if reported == 0:
-        raise RuntimeError("the pipeline reported no transcripts")
-    log(f"[pipeline] recovery {matched}/{len(truth)} = {matched / len(truth):.3f} "
-        f"of simulated isoforms ({reported} transcripts reported)")
-    return launches, dict(bam=bam, fq=fq, out=out, host_segment=host_dir)
+    launches = result["segment_k1_launches"]
+    if launches <= 0 or not result["segment_matches_host_oracle"]:
+        raise RuntimeError(f"the benchmark reported {launches} K1 launches")
+    log("[bench] " + json.dumps(result))
+    return launches, run
 
 
 def polya_windows(rng, n: int):
@@ -732,19 +548,6 @@ def polya_phase(dev, card, run: dict, workdir: str) -> int:
     return launches
 
 
-def same_tsvs(a: str, b: str, what: str) -> list[str]:
-    """The TSV names under a and b, after checking they are the same set,
-    byte for byte."""
-    names = tsv_tree(a)
-    if not names or names != tsv_tree(b):
-        raise RuntimeError(f"{what}: TSV sets differ ({len(names)} vs {len(tsv_tree(b))})")
-    differ = [n for n in names if not filecmp.cmp(os.path.join(a, n), os.path.join(b, n),
-                                                  shallow=False)]
-    if differ:
-        raise RuntimeError(f"{what}: TSVs differ: {differ[:5]}")
-    return names
-
-
 def mesh_phase(dev, card) -> int:
     """The loci mesh on one card, as ``__graft_entry__.py:dryrun_multichip``
     runs it on a CPU mesh: solve_batch_sharded over the card listed four
@@ -833,13 +636,15 @@ print("RESULT " + json.dumps({"rank": rank, "records": len(merged),
 """
 
 # The port's CLI entry (what `python -m freddie_tpu_torch.cli` runs), then
-# the K1 launches it made.
+# the K1 launches it made and the batches its dispatch solved on the host
+# because their bucket is wider than K1 holds.
 CLI = """
 import sys
 from freddie_tpu_torch import cli
 from freddie_tpu_torch.ops import segdp_cuda
 rc = cli.main(sys.argv[1:])
 print("LAUNCHES", segdp_cuda.LAUNCHES, "jax" in sys.modules)
+print("WIDE_HOST_BATCHES", segdp_cuda.WIDE_HOST_BATCHES)
 sys.exit(rc)
 """
 
@@ -930,9 +735,215 @@ def workflow_phase(device: str, card, run: dict, workdir: str) -> int:
     return launches
 
 
-def main() -> int:
+# A corpus one of whose DP problems has 245 candidates (the P = 256
+# bucket) and others 190 and 209 (P = 192 and 224) when the segment stage
+# runs with sigma 1, variance factor 9.9 and max_problem_size 250.
+WIDE_CORPUS = dict(
+    seed=8192, n_genes=2, isoforms_per_gene=6, reads_per_isoform=40, exons_per_gene=30,
+    minus_strand_genes=True, truncate_prob=0.3, tail_prob=0.7, end_jitter=30,
+    indel_rate=0.15, alt_splice=True, junction_jitter=40, big_del_rate=0.1,
+)
+WIDE_FLAGS = ["--max-problem-size", "250", "--sigma", "1", "--variance-factor", "9.9"]
+
+
+def wide_phase(dev, card, workdir: str) -> int:
+    """The widest bucket. A batch of 8 at P = 224 (the widest bucket K1
+    holds) launched and bit-equal to the plain version, chains included;
+    problems of the P = 256 bucket through solve_batch_device equal to
+    solve_host with the host-route counter moved and LAUNCHES not;
+    solve_batch_cuda at P = 256 still raising; then the ``segment`` CLI
+    with --max-problem-size 250 on WIDE_CORPUS with --device cuda and
+    --device cpu, byte-identical. Returns the K1 launches of the CLI run
+    on the card."""
+    import numpy as np
     import torch
 
+    from freddie_tpu_torch.config import SplitConfig
+    from freddie_tpu_torch.ops import segdp_cuda
+    from freddie_tpu_torch.ops.segdp import (
+        DPProblem, ScaledThresholds, _solve_batch_torch, _walk_chains, solve_batch_device,
+        solve_host, to_device)
+    from freddie_tpu_torch.stages.split import run_split
+    from freddie_tpu_torch.utils.sim import simulate
+
+    thr = ScaledThresholds(0.9)
+    lookup = torch.from_numpy(thr.lookup).to(dev)
+    rng = np.random.default_rng(224)
+    B, P, R = 8, 224, 128
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t = to_device(synthetic_batch(rng, B, P, R, False), dev)
+    args = (t["C"], t["y"], t["W"], t["n_cand"], 3, lookup, thr.scale)
+    K, bj, bk, chains = segdp_cuda.solve_batch_cuda(*args, with_chains=True)
+    torch.cuda.synchronize()
+    k1_mib = torch.cuda.max_memory_allocated(dev) / 2**20
+    plain = _solve_batch_torch(*args)
+    err = max_abs_diff((K, bj, bk), plain, P)
+    if err != 0 or not torch.equal(chains, _walk_chains(*plain)):
+        raise RuntimeError(f"K1 != plain at B={B} P={P} R={R}: max abs err {err}")
+    k1_ms = time_ms(lambda: segdp_cuda.solve_batch_cuda(*args))
+    log(f"[wide] K1 at B={B} P={P} R={R} (K1_MAX_P = {segdp_cuda.K1_MAX_P}): bit-equal to "
+        f"plain, chains equal to _walk_chains, {int((bj >= 0).sum())}/{B} segmented; "
+        f"{k1_ms:.3f} ms (median of {TIMED_REPS}); the call's peak device memory "
+        f"{k1_mib:.0f} MiB (its (B, P, P, P) scratch is {B * P**3 * 4 / 2**20:.0f} MiB); on {card}")
+    del t, args, K, bj, bk, chains, plain
+    torch.cuda.empty_cache()
+
+    problems = []
+    for _ in range(3):
+        p, r = int(rng.integers(225, 251)), 24
+        inc = rng.integers(0, 6, size=(p, r))
+        inc[rng.random(size=(p, r)) < 0.5] = 0
+        y = np.sort(rng.choice(np.arange(1, 40_000), size=p, replace=False)).astype(np.int64)
+        y[0] = 0
+        problems.append(DPProblem(C=np.cumsum(inc, axis=0).astype(np.int64), y=y,
+                                  W=rng.integers(1, 5, size=r).astype(np.int64), read_support=3))
+    launches, routed = segdp_cuda.LAUNCHES, segdp_cuda.WIDE_HOST_BATCHES
+    got = solve_batch_device(problems, thr, pad_p_to=256, pad_r_to=128, device=dev)
+    if got != [solve_host(pr, thr) for pr in problems]:
+        raise RuntimeError("the P = 256 bucket through the dispatch != solve_host")
+    if segdp_cuda.LAUNCHES != launches or segdp_cuda.WIDE_HOST_BATCHES != routed + 1:
+        raise RuntimeError("the P = 256 bucket was not routed to the host oracle")
+    t = to_device(synthetic_batch(rng, 1, 256, 64, False), dev)
+    try:
+        segdp_cuda.solve_batch_cuda(t["C"], t["y"], t["W"], t["n_cand"], 3, lookup, thr.scale)
+    except ValueError as e:
+        log(f"[wide] {len(problems)} problems of {[len(pr.y) for pr in problems]} candidates "
+            f"(the P = 256 bucket) through solve_batch_device: equal to solve_host, 0 launches, "
+            f"1 batch routed to the host; solve_batch_cuda at P = 256 raises: {e}")
+    else:
+        raise RuntimeError("solve_batch_cuda took P = 256")
+
+    d = os.path.join(workdir, "wide")
+    os.makedirs(d)
+    sim = simulate(**WIDE_CORPUS)
+    bam, fq = os.path.join(d, "r.bam"), os.path.join(d, "r.fastq")
+    sim.write_bam(bam)
+    sim.write_fastq(fq)
+    run_split(bam, [fq], os.path.join(d, "split"), SplitConfig())
+    outs = run_procs([[sys.executable, "-c", CLI, "segment", "-s", os.path.join(d, "split"),
+                       "-o", os.path.join(d, name), *WIDE_FLAGS, "--device", name]
+                      for name in (dev.type, "cpu")], timeout=600)
+    tail = [ln.split() for ln in outs[0].splitlines() if ln.startswith("LAUNCHES ")]
+    routed = [ln.split() for ln in outs[0].splitlines() if ln.startswith("WIDE_HOST_BATCHES ")]
+    if not tail or not routed or int(tail[-1][1]) <= 0 or int(routed[-1][1]) <= 0:
+        raise RuntimeError(f"the wide segment run reported {tail} launches, {routed} routed")
+    names = same_tsvs(os.path.join(d, dev.type), os.path.join(d, "cpu"),
+                      "segment --max-problem-size 250, card against cpu")
+    log(f"[wide] cli segment {' '.join(WIDE_FLAGS)} on {len(sim.reads)} reads: --device "
+        f"{dev.type} made {tail[-1][1]} K1 launches and routed {routed[-1][1]} batch(es) to "
+        f"the host; {len(names)} segment TSVs byte-identical to --device cpu")
+    return int(tail[-1][1])
+
+
+def window_phase(dev, card, run: dict, workdir: str) -> int:
+    """The segment stage on the card with a stream window of 5 tints over
+    the benchmark corpus: partial buckets are flushed every 5 tints, so
+    more and smaller launches than the unwindowed run's; the TSVs must be
+    byte-identical to the pipeline's. Returns its K1 launches."""
+    import torch
+
+    from freddie_tpu_torch.config import SegmentConfig
+    from freddie_tpu_torch.ops import segdp_cuda
+    from freddie_tpu_torch.stages.segment import run_segment
+
+    out = os.path.join(workdir, "segment_window")
+    segdp_cuda.LAUNCHES = 0
+    segdp_cuda.LAUNCH_SHAPES.clear()
+    t0 = time.perf_counter()
+    run_segment(os.path.join(run["out"], "split"), out, SegmentConfig(stream_window=5),
+                device=dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = segdp_cuda.LAUNCHES
+    shapes = sorted(set(segdp_cuda.LAUNCH_SHAPES))
+    names = same_tsvs(out, os.path.join(run["out"], "segment"), "windowed segment run")
+    if launches <= 3:
+        raise RuntimeError(f"the stream window forced no flush: {launches} K1 launches")
+    log(f"[window] segment with stream_window=5: {secs:.3f} s, {launches} K1 launches "
+        f"(3 without a window), batch sizes {sorted({s[0] for s in shapes})}; {len(names)} "
+        f"segment TSVs byte-identical to the unwindowed run, on {card}")
+    return launches
+
+
+def entry_phase(dev, card) -> int:
+    """The port's entry points: ``entry(device)``'s forward once, held
+    against the plain version, and ``dryrun_multichip(4)`` over the card
+    listed four times (over the real cards too when there are several).
+    Returns the K1 launches."""
+    import torch
+
+    from freddie_tpu_torch import entry as tentry
+    from freddie_tpu_torch.ops import segdp_cuda
+    from freddie_tpu_torch.ops.segdp import ScaledThresholds, _solve_batch_torch
+
+    segdp_cuda.LAUNCHES = 0
+    forward, example = tentry.entry(device=dev)
+    K, bj, bk = forward(*example)
+    torch.cuda.synchronize()
+    if segdp_cuda.LAUNCHES != 1:
+        raise RuntimeError(f"entry's forward made {segdp_cuda.LAUNCHES} K1 launches")
+    plain = _solve_batch_torch(*example[:4], 3, example[4], ScaledThresholds(0.9).scale)
+    if max_abs_diff((K, bj, bk), plain, K.shape[1]) != 0:
+        raise RuntimeError("entry's forward != the plain version")
+    log(f"[entry] entry(device={dev}): forward launched K1 once, K {tuple(K.shape)} bit-equal "
+        f"to the plain version, {int((bj >= 0).sum())}/{len(bj)} segmented")
+    res = [tentry.dryrun_multichip(4, device=dev)]
+    if torch.cuda.device_count() > 1:
+        res.append(tentry.dryrun_multichip(torch.cuda.device_count(), device="cuda"))
+    for r in res:
+        log(f"[entry] dryrun_multichip({r['shards']}) over {r['devices']}: sharded solve, "
+            f"dispatch at B = n + 1, the stage's buckets and the forced polyA scan equal to "
+            f"their host oracles ({json.dumps(r['checked'])}); {r['sharded_dispatches']} "
+            f"sharded dispatches, {r['k1_launches']} K1 launches, on {card}")
+    torch.cuda.synchronize()
+    return segdp_cuda.LAUNCHES
+
+
+def tools_phase(dev, card) -> None:
+    """The tooling at a small size: the bound experiment on a two-point
+    grid (card bounds equal to the host's), the kernel phase profile at
+    (64, 64, 384), the weak-scaling mode over the card listed 1, 2 and 4
+    times (a dispatch check: the results are held equal across n, and no
+    scaling is measured), and the kernel warm-up."""
+    from freddie_tpu_torch.parallel import bench as pbench
+    from freddie_tpu_torch.tools import bound_device_experiment, profile_kernel_phases, warm_kernels
+
+    bounds = bound_device_experiment.run(dev, [(250, 4_000), (1000, 100_000)], [(300, 16)], 3,
+                                         log=lambda row: log(f"[tools] bounds {row}"))
+    log(f"[tools] bound_device_experiment: card bounds equal to the host's at "
+        f"{len(bounds['grid'])} points; crossover work {bounds['crossover_work']} "
+        f"(BOUNDS_DEVICE_MIN = {bounds['bounds_device_min']}), on {card}")
+    profile_kernel_phases.profile_shape(dev, STAGE_SHAPES[2],
+                                        lambda msg: log(msg.replace("[phases]", "[tools]", 1)))
+    weak = pbench.weak_scaling([dev] * 4, reps=3)
+    if weak["distinct_devices"] or weak["at_mesh"] != 4:
+        raise RuntimeError(f"weak scaling over one card listed four times reported {weak}")
+    log(f"[tools] weak-scaling mode over {dev} listed 1, 2, 4 times (a check of the sharded "
+        f"dispatch, not a scaling measurement): results equal across n; reads/s per mesh size "
+        f"{json.dumps(weak['per_mesh'])}, ratio {weak['value']:.3f}, on {card}")
+    warm_kernels.warm(lambda msg: log(msg.replace("[warm]", "[tools] warm_kernels:", 1)))
+
+
+def fuzz_phase(dev, card, n_shifts: int) -> None:
+    """``n_shifts`` seed shifts of the parity suite's three corpora on the
+    card with the device route forced, against the host-oracle route."""
+    from freddie_tpu_torch.tools.run_fuzz_shifts import fuzz_device_against_host
+
+    n = fuzz_device_against_host(dev, range(n_shifts), log)
+    log(f"[fuzz] {n} corpora over {n_shifts} seed shifts byte-identical to the host-oracle "
+        f"route, on {card}")
+
+
+def main(argv=None) -> int:
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernels", action="store_true",
+                    help="the kernel phases only; exits 3, no result line")
+    ap.add_argument("--fuzz", type=int, default=0, metavar="N",
+                    help="after everything else, N seed shifts of the fuzz")
+    opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no GPU (torch.cuda.is_available() is False)", file=sys.stderr)
         return 2
@@ -951,25 +962,41 @@ def main() -> int:
     for ln in ptxas:
         log(f"[build] {ln}")
 
-    kern = kernel_phase(dev, card)
-    pipe_launches = pipelined_path(dev, card)
-    if sys.argv[1:] == ["--kernels"]:
+    started = time.perf_counter()
+
+    def timed(name, phase, *args):
+        """Run a phase and say how long it took by the host clock."""
+        t0 = time.perf_counter()
+        out = phase(*args)
+        log(f"[time] {name}: {time.perf_counter() - t0:.1f} s")
+        return out
+
+    kern = timed("kernels", kernel_phase, dev, card)
+    pipe_launches = timed("pipelined", pipelined_path, dev, card)
+    if opts.kernels:
         log("[kernels] kernel phases only: the paths were not driven, no result line")
         return 3
-    cluster_phase(dev, card)
+    timed("cluster", cluster_phase, dev, card)
     workdir = tempfile.mkdtemp(prefix=".chip_smoke-", dir=REPO)
     by_path = {}
     try:
-        by_path["pipeline"], run = pipeline_phase(dev, workdir)
-        by_path["polya"] = polya_phase(dev, card, run, workdir)
-        by_path["mesh"] = mesh_phase(dev, card)
-        by_path["dist"] = dist_phase(dev.type, card, run, workdir)
-        by_path["workflow"] = workflow_phase(dev.type, card, run, workdir)
+        by_path["pipeline"], run = timed("pipeline", pipeline_phase, dev, workdir)
+        by_path["polya"] = timed("polya", polya_phase, dev, card, run, workdir)
+        by_path["mesh"] = timed("mesh", mesh_phase, dev, card)
+        by_path["dist"] = timed("dist", dist_phase, dev.type, card, run, workdir)
+        by_path["workflow"] = timed("workflow", workflow_phase, dev.type, card, run, workdir)
+        by_path["wide"] = timed("wide", wide_phase, dev, card, workdir)
+        by_path["window"] = timed("window", window_phase, dev, card, run, workdir)
+        by_path["entry"] = timed("entry", entry_phase, dev, card)
+        timed("tools", tools_phase, dev, card)
+        if opts.fuzz:
+            timed("fuzz", fuzz_phase, dev, card, opts.fuzz)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     if "jax" in sys.modules:
         raise RuntimeError("jax was imported")
 
+    log(f"[time] the whole run, from the build's end: {time.perf_counter() - started:.1f} s")
     log(f"[kernels] segdp (K1) launches by path: {json.dumps(by_path)}; "
         f"segdp_pipelined (K2): {json.dumps({'pipelined': pipe_launches})}")
     log(card)

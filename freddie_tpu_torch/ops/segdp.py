@@ -366,6 +366,7 @@ def dispatch_batch_device(
     pad_b_to: int = 0,
     dev_cov: bool | None = None,
     device="cuda",
+    devices=None,
 ):
     """Launch a padded batch on ``device`` WITHOUT waiting for it.
 
@@ -379,8 +380,19 @@ def dispatch_batch_device(
     mesh, ``parallel.mesh``), as the JAX dispatch shards over its local
     devices, once each card's share passes ``mesh.MESH_MIN_WORK`` (by
     default never: then it is the current card); "cuda:N" and "cpu" name
-    one device."""
+    one device. ``devices``, a list of devices, overrides both: the batch is
+    split over exactly those, whatever its size (one device may be listed
+    several times).
+
+    A batch for a CUDA device whose padded P is wider than K1 holds
+    (``segdp_cuda.K1_MAX_P``) is solved here with ``solve_host``, problem
+    by problem, and returned as (None, [], results), like the
+    int32-overflow batch below: the JAX dispatch's XLA route and this
+    package's CPU route solve such a batch, so the CUDA route must too.
+    ``segdp_cuda.WIDE_HOST_BATCHES`` and ``WIDE_HOST_PROBLEMS`` count them;
+    the pipeline writes their growth into the segment stage's metrics."""
     from ..parallel import mesh
+    from . import segdp_cuda
 
     if not problems:
         return None, [], []
@@ -405,7 +417,17 @@ def dispatch_batch_device(
     while B_pad < B:
         B_pad <<= 1
     B_pad = max(B_pad, pad_b_to)
-    devices = mesh.devices_for(device, B_pad * P**3 * R)
+    if devices is not None:
+        devices = [torch.device(d) for d in devices]
+    on_card = (devices[0] if devices else torch.device(device)).type == "cuda"
+    if on_card and P > segdp_cuda.K1_MAX_P:
+        for i in work:
+            results[i] = solve_host(problems[i], thr)
+        segdp_cuda.WIDE_HOST_BATCHES += 1
+        segdp_cuda.WIDE_HOST_PROBLEMS += len(work)
+        return None, [], results
+    if devices is None:
+        devices = mesh.devices_for(device, B_pad * P**3 * R)
     y = np.zeros((B_pad, P), dtype=np.int32)
     W = np.zeros((B_pad, R), dtype=np.float32)
     n_cand = np.zeros((B_pad,), dtype=np.int32)
@@ -509,11 +531,13 @@ def solve_batch_device(
     pad_p_to: int = 8,
     pad_r_to: int = 128,
     device="cuda",
+    devices=None,
 ) -> list[list[int]]:
-    """Solve a batch of problems on ``device``; identical results to
-    solve_host, bit for bit. dispatch_batch_device/collect_batch_device
-    are the async halves for callers overlapping several launches."""
+    """Solve a batch of problems on ``device`` (or split over the list
+    ``devices``); identical results to solve_host, bit for bit.
+    dispatch_batch_device/collect_batch_device are the async halves for
+    callers overlapping several launches."""
     handles, work, results = dispatch_batch_device(
-        problems, thr, pad_p_to=pad_p_to, pad_r_to=pad_r_to, device=device
+        problems, thr, pad_p_to=pad_p_to, pad_r_to=pad_r_to, device=device, devices=devices
     )
     return collect_batch_device(handles, work, results)

@@ -41,7 +41,9 @@ kernel or raises; nothing falls back.
 
 from __future__ import annotations
 
+import collections
 import ctypes
+import math
 
 import torch
 
@@ -52,6 +54,14 @@ from .segdp import _solve_batch_torch, _walk_chains, threshold_products
 # K1's (both of its launches count once) and K2's.
 LAUNCHES = 0
 PIPELINED_LAUNCHES = 0
+# The (B, P, R) of K1's latest launches as the caller gave them, oldest
+# first: what a benchmark reads to name the shapes a stage launched.
+LAUNCH_SHAPES: collections.deque = collections.deque(maxlen=256)
+# Batches that ``ops.segdp.dispatch_batch_device`` solved on the host
+# because their padded P is wider than K1 holds (``K1_MAX_P``), and the
+# problems in them.
+WIDE_HOST_BATCHES = 0
+WIDE_HOST_PROBLEMS = 0
 
 # Shared memory a Hopper block may use (dynamic, after opting in).
 _BLOCK_SMEM = 232_448
@@ -60,6 +70,12 @@ _MAX_SMEM = _BLOCK_SMEM - 256  # less the wavefront's static reduction scratch
 # What the runtime reports for K2, by (device index, P): SMs, blocks an SM
 # holds at once, registers per thread, shared memory per block.
 _PIPE_BLOCKS: dict[tuple[int, int], tuple[int, int, int, int]] = {}
+
+# The widest problem K1 takes (240): the wavefront's H (4 P^2 B) and ys
+# (4 P B) fit _MAX_SMEM up to here, 4 P^2 + 4 P = (2 P + 1)^2 - 1. The
+# dispatch's P buckets are multiples of 32, so 224 is the widest it
+# launches; it solves wider batches on the host.
+K1_MAX_P = (math.isqrt(_MAX_SMEM + 1) - 1) // 2
 
 # The widest problem K2 takes: above it one block's phase-1 slots
 # (PairSmem<128>, 107,520 B), H (4 P^2 B) and ys do not fit _BLOCK_SMEM.
@@ -187,8 +203,9 @@ def solve_batch_cuda(C, y, W, n_cand, read_support, lookup, scale, pipelined=Fal
     (K1 splits wide weights into limbs itself), so they take no
     ``wide_weights`` flag. ``with_chains`` appends the (B, P+2)
     -1-terminated breakpoint chains to the result: both kernels walk them
-    themselves; the CPU route takes ``_walk_chains``. K2 raises ValueError
-    for P above ``K2_MAX_P``."""
+    themselves; the CPU route takes ``_walk_chains``. Raises ValueError for
+    P above ``K1_MAX_P`` (K2: ``K2_MAX_P``); the dispatch routes such
+    batches to the host before it calls this."""
     global LAUNCHES, PIPELINED_LAUNCHES
     if C.device.type == "cpu":
         res = _solve_batch_torch(C, y, W, n_cand, read_support, lookup, scale)
@@ -207,8 +224,9 @@ def solve_batch_cuda(C, y, W, n_cand, read_support, lookup, scale, pipelined=Fal
     if not 0 <= int(read_support) < 2**31:
         raise ValueError(f"read_support {read_support} out of int32 range")
     lib = _lib()
-    if lib.segdp_wavefront_smem(P) > _MAX_SMEM:
-        raise ValueError(f"P={P}: H does not fit one block's shared memory")
+    if P > K1_MAX_P:
+        raise ValueError(f"P={P}: H does not fit one block's shared memory "
+                         f"(the kernels take P <= {K1_MAX_P})")
 
     Cs, T_hi, T_lo, Wi, w_sum, w_max = kernel_inputs(C, y, W, lookup, scale)
     R = Wi.shape[1]  # padded
@@ -242,4 +260,5 @@ def solve_batch_cuda(C, y, W, n_cand, read_support, lookup, scale, pipelined=Fal
         PIPELINED_LAUNCHES += 1
     else:
         LAUNCHES += 1
+        LAUNCH_SHAPES.append((B, P, C.shape[2]))
     return (K, best_j, best_k, chains) if with_chains else (K, best_j, best_k)

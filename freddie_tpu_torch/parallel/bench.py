@@ -1,8 +1,10 @@
 """The loci mesh's times on a host with several cards.
 
     python -m freddie_tpu_torch.parallel.bench [--json PATH]
+    python -m freddie_tpu_torch.parallel.bench --weak-scaling DEVICES [--json PATH]
 
-Needs two cards or more and uses every card it sees. Measures:
+The first form needs two cards or more and uses every card it sees. It
+measures:
 
 1. at the kernel benchmark shape (B=2048, P=64, R=512), K1 alone on
    resident inputs -- the whole batch on card 0 against one shard per
@@ -22,6 +24,16 @@ Every time is on the host clock, a median over repetitions that
 alternate the routes in one process, after one warm-up call of each.
 Prints one line per measurement, the cards' names and power limits, and
 a JSON summary as the last line (also written to ``--json``).
+
+``--weak-scaling`` takes the devices to shard over (``all``: every
+visible card; or a comma-separated list such as ``cuda:0,cuda:1`` or
+``cpu,cpu,cpu,cpu``) and reports the weak-scaling figure of the sharded
+DP: B = 64 n problems at P=64, R=256 over the first n = 1, 2 and all of
+the devices, reads/s per mesh size and ``segdp_scaling_efficiency`` =
+rate(n) / (n rate(1)). Over distinct cards that is a scaling measurement;
+over one device listed several times (a card's side streams, or CPU
+shards run in turn) it checks the sharded dispatch and measures no
+scaling, and the JSON says which (``distinct_devices``).
 """
 
 from __future__ import annotations
@@ -237,15 +249,85 @@ def segment_stage(gate: int | None, reps: int, workdir: str, log) -> dict:
     return res
 
 
+def weak_scaling(devices, reps: int = 3, per_device: int = 64, P: int = 64,
+                 R: int = 256) -> dict:
+    """Weak scaling of ``solve_batch_sharded``: per_device * n problems over
+    the first n of ``devices`` for n = 1, 2 and all of them; reads/s
+    (B * R over the fastest of ``reps`` host-clock calls, transfers and
+    readback included, after one warm-up call) and the efficiency at the
+    largest mesh. The results at every n are held equal, problem by
+    problem, to the one-device solve of the same rows."""
+    devices = [torch.device(d) for d in devices]
+    thr = ScaledThresholds(0.9)
+    full = padded_batch(np.random.default_rng(0), per_device * len(devices), P, R)
+    full["W"][:] = 1.0
+    full["n_cand"][:] = P
+    sizes = sorted({1, 2, len(devices)} & set(range(1, len(devices) + 1)))
+    rates, first = {}, None
+    for n in sizes:
+        B = per_device * n
+        args = (full["C"][:B], full["y"][:B], full["W"][:B], full["n_cand"][:B], 3,
+                thr.lookup, thr.scale)
+        got = mesh.solve_batch_sharded(*args, devices[:n])  # warm-up, and the check
+        if first is None:
+            first = got
+        elif not all(np.array_equal(g[:per_device], f) for g, f in zip(got, first)):
+            raise RuntimeError(f"the sharded solve over {n} devices differs from one device's")
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            mesh.solve_batch_sharded(*args, devices[:n])
+            times.append(time.perf_counter() - t0)
+        rates[n] = B * R / min(times)
+    head = sizes[-1]
+    on_cards = devices[0].type == "cuda"
+    return dict(
+        metric="segdp_scaling_efficiency",
+        value=rates[head] / (head * rates[sizes[0]] / sizes[0]),
+        unit="fraction",
+        at_mesh=head,
+        per_mesh={str(n): r for n, r in rates.items()},
+        shape=dict(per_device=per_device, P=P, R=R),
+        devices=[str(d) for d in devices],
+        distinct_devices=len({str(d) for d in devices}) == len(devices),
+        cards=cards_line() if on_cards else None,
+    )
+
+
+def _weak_scaling_main(spec: str, reps: int, json_path: str | None, log) -> int:
+    devices = mesh.loci_devices() if spec == "all" else [torch.device(d) for d in spec.split(",")]
+    summary = weak_scaling(devices, reps)
+    what = ("a scaling measurement" if summary["distinct_devices"] else
+            "one device listed several times: a check of the sharded dispatch, not a "
+            "scaling measurement")
+    log(f"[weak-scaling] reads/s per mesh size {summary['per_mesh']}, efficiency "
+        f"{summary['value']:.3f} at {summary['at_mesh']} over {summary['devices']} ({what})")
+    _write_json(summary, json_path)
+    log(json.dumps(summary))
+    return 0
+
+
+def _write_json(summary: dict, path: str | None) -> None:
+    if path:
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        with open(path, "w") as f:
+            json.dump(summary, f, indent=1)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--json", help="also write the summary here")
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--weak-scaling", metavar="DEVICES",
+                    help="only the weak-scaling figure, over 'all' cards or a "
+                         "comma-separated device list")
     args = ap.parse_args(argv)
 
     def log(*a):
         print(*a, flush=True)
 
+    if args.weak_scaling:
+        return _weak_scaling_main(args.weak_scaling, args.reps, args.json, log)
     if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
         print("needs two CUDA devices or more", file=sys.stderr)
         return 2
@@ -266,10 +348,7 @@ def main(argv=None) -> int:
         seg = segment_stage(gate, 3, workdir, log)
     summary = dict(cards=card, count=len(cards), kernel_shape_ms=kern, sweep=rows,
                    picked_gate=gate, mesh_min_work=mesh.MESH_MIN_WORK, segment=seg)
-    if args.json:
-        os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
-        with open(args.json, "w") as f:
-            json.dump(summary, f, indent=1)
+    _write_json(summary, args.json)
     log(card)
     log(json.dumps(summary))
     return 0

@@ -40,6 +40,9 @@ from ..ops.segdp_cuda import solve_batch_cuda
 # does not shrink, dwarfs K1 (PERF.md).
 MESH_MIN_WORK: int | None = None
 
+# Batches that launch_sharded split over more than one shard.
+SHARDED_LAUNCHES = 0
+
 
 def loci_devices() -> list[torch.device]:
     """The visible cards; raises when there is none."""
@@ -98,6 +101,7 @@ def launch_sharded(arrays: dict, read_support: int, lookup, scale: int, devices,
     waits for every shard and concatenates them in batch order. B must be
     a multiple of ``len(devices)`` (callers pad). One device runs on its
     current stream, several each on a side stream of their own."""
+    global SHARDED_LAUNCHES
     devices = [torch.device(d) for d in devices]
     B, R = arrays["W"].shape
     if not devices or B % len(devices):
@@ -105,6 +109,7 @@ def launch_sharded(arrays: dict, read_support: int, lookup, scale: int, devices,
     per = B // len(devices)
     lookup = np.asarray(lookup, dtype=np.int32)
     outs = [_Launch() for _ in range(1 if return_chains else 3)]
+    SHARDED_LAUNCHES += len(devices) > 1
     for i, dev in enumerate(devices):
         shard = {k: a[i * per : (i + 1) * per] for k, a in arrays.items()}
         with _on(dev, i if len(devices) > 1 else None):

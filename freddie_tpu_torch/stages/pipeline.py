@@ -12,6 +12,7 @@ import os
 import shutil
 
 from ..config import PipelineConfig
+from ..ops import segdp_cuda
 from ..utils.fsio import is_complete, mark_complete, protect_outputs, set_writable
 from ..utils.metrics import StageMetrics
 from .cluster import run_cluster
@@ -67,6 +68,7 @@ def run_pipeline(
                     log(f"[pipeline] {name}: incomplete output, re-running")
                 _remove(out_path)
         metrics = StageMetrics(name)
+        wide = (segdp_cuda.WIDE_HOST_BATCHES, segdp_cuda.WIDE_HOST_PROBLEMS)
         for attempt in range(cfg.retries + 1):
             try:
                 result = fn()
@@ -84,6 +86,11 @@ def run_pipeline(
             metrics.add("tints", sum(result.values()))
         elif isinstance(result, int):
             metrics.add("tints", result)
+        # DP batches the dispatch solved on the host because their bucket
+        # is wider than the card's kernel holds.
+        if segdp_cuda.WIDE_HOST_BATCHES > wide[0]:
+            metrics.add("wide_host_batches", segdp_cuda.WIDE_HOST_BATCHES - wide[0])
+            metrics.add("wide_host_problems", segdp_cuda.WIDE_HOST_PROBLEMS - wide[1])
         stats[name] = dict(**metrics.finish(), result=result)
         log(f"[pipeline] {name}: done in {stats[name]['seconds']:.2f}s ({result})")
         return result

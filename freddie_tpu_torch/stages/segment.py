@@ -25,6 +25,7 @@ route writes the same bytes.
 from __future__ import annotations
 
 import os
+import sys
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -32,6 +33,7 @@ import numpy as np
 from ..config import SegmentConfig
 from ..device import resolve_device
 from ..io.tsv import SplitTint, format_segment_tsv, load_read_sequences, parse_split_tsv
+from ..ops import segdp_cuda
 from ..ops import signal as sig
 from ..ops.coverage import cumulative_coverage
 from ..ops.polya import _load_ctok, annotate_gaps_and_polya
@@ -364,9 +366,10 @@ def prepare_tint(tint: SplitTint, cfg: SegmentConfig, thr: ScaledThresholds) -> 
 
 
 def solve_problems(problems: list[DPProblem], cfg: SegmentConfig, thr: ScaledThresholds,
-                   device="cuda") -> list[list[int]]:
+                   device="cuda", devices=None) -> list[list[int]]:
     """Dispatch DP problems to the device kernel in size-bucketed batches
-    (or the host oracle when use_device=False).
+    (or the host oracle when use_device=False). ``devices``, a list,
+    splits every batch over exactly those devices instead.
 
     Tiny workloads stay on the host: a device dispatch costs a fixed
     launch and readback while the host oracle
@@ -400,7 +403,7 @@ def solve_problems(problems: list[DPProblem], cfg: SegmentConfig, thr: ScaledThr
             chunk = idxs[lo : lo + bs]
             handles, work, res = dispatch_batch_device(
                 [problems[i] for i in chunk], thr, pad_p_to=P, pad_r_to=R,
-                device=device,
+                device=device, devices=devices,
             )
             pending.append((chunk, handles, work, res))
     for chunk, handles, work, res in pending:
@@ -504,6 +507,7 @@ def run_segment(split_dir: str, outdir: str, cfg: SegmentConfig | None = None,
     (by default never)."""
     cfg = cfg or SegmentConfig()
     dev = resolve_device(device) if cfg.use_device else None
+    wide_before = segdp_cuda.WIDE_HOST_PROBLEMS
     os.makedirs(outdir, exist_ok=True)
     thr = ScaledThresholds(cfg.threshold_rate)
     jobs: list[tuple[str, int, str, str]] = []
@@ -746,4 +750,9 @@ def run_segment(split_dir: str, outdir: str, cfg: SegmentConfig | None = None,
     finally:
         if readback is not None:
             readback.shutdown(wait=True)
+    wide = segdp_cuda.WIDE_HOST_PROBLEMS - wide_before
+    if wide:
+        print(f"[segment] {wide} DP problems lie in buckets wider than the card's kernel "
+              f"holds (P > {segdp_cuda.K1_MAX_P}) and were solved on the host",
+              file=sys.stderr, flush=True)
     return len(jobs)

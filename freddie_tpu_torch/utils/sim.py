@@ -410,6 +410,36 @@ BENCH_CORPUS = dict(
 )
 
 
+# The reference-parity suite's three simulation configs with their base
+# seeds (tests/test_reference_parity.py): what the tie-break audit and
+# the seed-shift fuzz simulate, the seed shifted per run.
+PARITY_CORPORA = {
+    "clean": dict(
+        seed=2024, n_genes=3, isoforms_per_gene=2, reads_per_isoform=8,
+        minus_strand_genes=True, truncate_prob=0.25, tail_prob=0.85,
+    ),
+    "noisy": dict(
+        seed=4096, n_genes=2, isoforms_per_gene=4, reads_per_isoform=30,
+        minus_strand_genes=True, truncate_prob=0.2, tail_prob=0.8,
+        end_jitter=25, indel_rate=0.1, alt_splice=True, junction_jitter=6,
+        big_del_rate=0.06,
+    ),
+    "gnarly": dict(
+        seed=8192, n_genes=2, isoforms_per_gene=5, reads_per_isoform=25,
+        exons_per_gene=7, minus_strand_genes=True, truncate_prob=0.3,
+        tail_prob=0.7, end_jitter=30, indel_rate=0.15, alt_splice=True,
+        junction_jitter=8, big_del_rate=0.1,
+    ),
+}
+
+
+def parity_corpus(name: str, shift: int = 0) -> dict:
+    """``simulate`` keywords of parity config ``name``, its seed shifted."""
+    kwargs = dict(PARITY_CORPORA[name])
+    kwargs["seed"] += shift
+    return kwargs
+
+
 def clustered_instance(rng, N, M, k_true=3) -> ClusterInstance:
     """N reads clustered around k_true random exon structures, with exons
     dropped as correctable (corr) segments and no conflicts: the shape

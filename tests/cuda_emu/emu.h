@@ -8,11 +8,18 @@
 // arrives without waiting; atomicAdd is a fetch_add and setmaxnreg a
 // no-op; __shfl_xor_sync exchanges through
 // per-warp slots between two warp barriers, and so do the fragments of the
-// tensor-core step (mma_m16n8k32_s8); cp.async copies at once. Blocks run
-// one after another (so the first block that draws from a work queue
-// drains it), and function-static arrays (what __shared__ becomes here) serve as shared memory, and the
-// dynamic shared memory is one global buffer filled with garbage before
-// every block, as the card leaves it.
+// tensor-core step (mma_m16n8k32_s8); cp.async copies at once.
+//
+// emu_launch runs `concurrent` blocks of a launch at once, each a group of
+// threads with a state of its own (EmuBlock: its barriers, its warps'
+// exchange slots, its shared memory); a group takes the blocks c, c + C,
+// ... one after another. With one group the blocks run in turn, so the
+// first block that draws from a work queue drains it; with as many groups
+// as blocks, a persistent kernel's blocks all draw at once. The dynamic
+// shared memory is a buffer of the block's, filled with garbage before
+// every block, as the card leaves it; a static __shared__ array becomes a
+// pointer into the block's state (emu_shared; the test that compiles the
+// kernels rewrites the declaration).
 #pragma once
 
 #include <atomic>
@@ -36,7 +43,6 @@
 #define __forceinline__ inline
 #define __restrict__ __restrict
 #define __launch_bounds__(...)
-#define __shared__ static
 #define __align__(n) alignas(n)
 
 struct dim3 {
@@ -51,23 +57,41 @@ struct uint2 {
   unsigned x, y;
 };
 
-inline thread_local dim3 threadIdx;
-inline dim3 blockIdx, blockDim, gridDim;
-inline unsigned char emu_dyn_smem[256 * 1024];
-
 struct EmuWarp {
   std::unique_ptr<std::barrier<>> bar;
   long long slot[32];
   unsigned frag_a[32][4];
   unsigned frag_b[32][2];
 };
-inline std::unique_ptr<std::barrier<>> emu_block_bar;
-inline EmuWarp emu_warps[32];
 
-inline void __syncthreads() { emu_block_bar->arrive_and_wait(); }
+// What the threads of one running block share.
+struct EmuBlock {
+  static constexpr int kSharedArrays = 16, kSharedBytes = 512;
+  std::unique_ptr<std::barrier<>> bar;
+  EmuWarp warps[32];
+  std::mutex named_mu;
+  std::map<std::pair<int, int>, std::unique_ptr<std::barrier<>>> named;
+  alignas(16) unsigned char dyn_smem[256 * 1024];
+  alignas(16) unsigned char static_smem[kSharedArrays][kSharedBytes];
+};
 
-inline std::mutex emu_named_mu;
-inline std::map<std::pair<int, int>, std::unique_ptr<std::barrier<>>> emu_named;
+inline thread_local dim3 threadIdx, blockIdx;
+inline dim3 blockDim, gridDim;
+inline thread_local EmuBlock* emu_block;
+inline thread_local unsigned char* emu_dyn_smem;
+
+// The block's copy of the static __shared__ array declared at site `id`
+// (one __COUNTER__ value per declaration), n elements of T.
+template <class T>
+T* emu_shared(int n, int id) {
+  if (id >= EmuBlock::kSharedArrays || n * sizeof(T) > EmuBlock::kSharedBytes) {
+    std::fprintf(stderr, "emu_shared: array %d of %d elements does not fit\n", id, n);
+    std::abort();
+  }
+  return reinterpret_cast<T*>(emu_block->static_smem[id]);
+}
+
+inline void __syncthreads() { emu_block->bar->arrive_and_wait(); }
 
 // EMU_STALL="id:ms" in the environment makes every thread sleep ms
 // milliseconds before each group_sync on barrier id: a way to run one
@@ -75,11 +99,10 @@ inline std::map<std::pair<int, int>, std::unique_ptr<std::barrier<>>> emu_named;
 // schedules a fast group never shows. Read at each launch.
 inline int emu_stall_id = -1, emu_stall_ms = 0;
 
-// The barrier that `nthreads` threads share under `id`; the map is cleared
-// before each launch.
+// The barrier that `nthreads` threads of the block share under `id`.
 inline std::barrier<>* emu_named_barrier(int id, int nthreads) {
-  std::lock_guard<std::mutex> lock(emu_named_mu);
-  auto& slot = emu_named[{id, nthreads}];
+  std::lock_guard<std::mutex> lock(emu_block->named_mu);
+  auto& slot = emu_block->named[{id, nthreads}];
   if (!slot) slot = std::make_unique<std::barrier<>>(nthreads);
   return slot.get();
 }
@@ -109,7 +132,7 @@ inline int atomicAdd(int* p, int v) { return std::atomic_ref<int>(*p).fetch_add(
 template <class T>
 T __shfl_xor_sync(unsigned, T v, int lane_mask) {
   const int tid = threadIdx.x;
-  EmuWarp& w = emu_warps[tid / 32];
+  EmuWarp& w = emu_block->warps[tid / 32];
   const int lane = tid & 31;
   long long bits = 0;
   std::memcpy(&bits, &v, sizeof(T));
@@ -132,7 +155,7 @@ void cp_async_wait() {}
 // then each lane sums its own four outputs from the assembled tiles.
 inline void mma_m16n8k32_s8(int (&d)[4], const unsigned (&a)[4], const unsigned (&b)[2]) {
   const int tid = threadIdx.x;
-  EmuWarp& w = emu_warps[tid / 32];
+  EmuWarp& w = emu_block->warps[tid / 32];
   const int lane = tid & 31;
   w.bar->arrive_and_wait();  // the previous exchange has been read
   for (int i = 0; i < 4; ++i) w.frag_a[lane][i] = a[i];
@@ -156,36 +179,40 @@ inline void mma_m16n8k32_s8(int (&d)[4], const unsigned (&a)[4], const unsigned 
   }
 }
 
-// Runs body() as every thread of every block of `grid`, block by block:
-// one std::thread per CUDA thread for the whole launch, with a block
-// barrier before and after each block while thread 0 sets it up.
+// Runs body() as every thread of every block of `grid`, `concurrent`
+// blocks at once: one std::thread per CUDA thread of each group for the
+// whole launch, with a block barrier before and after each block while
+// thread 0 sets it up.
 template <class F>
-void emu_launch(dim3 grid, int threads, F body) {
+void emu_launch(dim3 grid, int threads, F body, int concurrent = 1) {
   gridDim = grid;
   blockDim = dim3(threads);
-  emu_block_bar = std::make_unique<std::barrier<>>(threads);
-  emu_named.clear();
   if (const char* stall = std::getenv("EMU_STALL"))
     std::sscanf(stall, "%d:%d", &emu_stall_id, &emu_stall_ms);
-  for (int w = 0; w < threads / 32; ++w)
-    emu_warps[w].bar = std::make_unique<std::barrier<>>(32);
+  const unsigned blocks = grid.x * grid.y;
+  std::vector<std::unique_ptr<EmuBlock>> groups;
   std::vector<std::thread> ts;
-  ts.reserve(threads);
-  for (int t = 0; t < threads; ++t) {
-    ts.emplace_back([t, grid, &body] {
-      threadIdx = dim3(t);
-      for (unsigned by = 0; by < grid.y; ++by) {
-        for (unsigned bx = 0; bx < grid.x; ++bx) {
-          if (t == 0) {
-            blockIdx = dim3(bx, by);
-            std::memset(emu_dyn_smem, 0xAB, sizeof(emu_dyn_smem));
-          }
-          emu_block_bar->arrive_and_wait();
+  ts.reserve((size_t)concurrent * threads);
+  for (int c = 0; c < concurrent; ++c) {
+    groups.push_back(std::make_unique<EmuBlock>());
+    EmuBlock* blk = groups.back().get();
+    blk->bar = std::make_unique<std::barrier<>>(threads);
+    for (int w = 0; w < threads / 32; ++w)
+      blk->warps[w].bar = std::make_unique<std::barrier<>>(32);
+    for (int t = 0; t < threads; ++t) {
+      ts.emplace_back([t, c, concurrent, grid, blocks, blk, &body] {
+        threadIdx = dim3(t);
+        emu_block = blk;
+        emu_dyn_smem = blk->dyn_smem;
+        for (unsigned lin = c; lin < blocks; lin += concurrent) {
+          blockIdx = dim3(lin % grid.x, lin / grid.x);
+          if (t == 0) std::memset(blk->dyn_smem, 0xAB, sizeof(blk->dyn_smem));
+          blk->bar->arrive_and_wait();
           body();
-          emu_block_bar->arrive_and_wait();
+          blk->bar->arrive_and_wait();
         }
-      }
-    });
+      });
+    }
   }
   for (auto& t : ts) t.join();
 }

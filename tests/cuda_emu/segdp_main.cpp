@@ -1,12 +1,15 @@
 // Runs the segmentation-DP kernels under the CPU shim (emu.h) on a batch
 // read from raw int32 files in the working directory, and writes K,
 // best_j and best_k back (tests/test_torch_segdp_emulated.py): K1's two
-// launches, or with a grid size G, K2's one launch of G blocks.
+// launches, or with a grid size G, K2's one launch of G blocks, of which
+// `at_once` run concurrently (default 1: in turn).
 //
-//   segdp_emu B P R read_support [G]
+//   segdp_emu B P R read_support [G [at_once]]
 //   in:  Cs.bin Thi.bin Tlo.bin W.bin wsum.bin wmax.bin y.bin n.bin
-//   out: K.bin bj.bin bk.bin chains.bin, and K1's OT.bin and INS.bin (its
-//        scratch, of which only the live entries are defined)
+//   out: K.bin bj.bin bk.bin chains.bin; K1's OT.bin and INS.bin (its
+//        scratch, of which only the live entries are defined); K2's
+//        queue.bin (the work counter as the launch left it: every block
+//        draws until it is handed a problem >= B, so B draws in all)
 #include <cstdio>
 #include <cstdlib>
 #include <vector>
@@ -34,11 +37,12 @@ static void store(const char* name, const std::vector<T>& v) {
 }
 
 int main(int argc, char** argv) {
-  if (argc != 5 && argc != 6) return 2;
+  if (argc < 5 || argc > 7) return 2;
   const int B = std::atoi(argv[1]), P = std::atoi(argv[2]);
   const int R = std::atoi(argv[3]), rs = std::atoi(argv[4]);
-  const int G = argc == 6 ? std::atoi(argv[5]) : 0;  // 0: K1
-  if (G < 0 || G > B) return 2;
+  const int G = argc >= 6 ? std::atoi(argv[5]) : 0;  // 0: K1
+  const int at_once = argc == 7 ? std::atoi(argv[6]) : 1;
+  if (G < 0 || G > B || at_once < 1 || at_once > (G ? G : 1)) return 2;
   if (R % segdp::kMmaStage != 0) return 2;  // the wrapper pads the reps
   const size_t BP = (size_t)B * P, BPP = BP * P;
   auto Cs = load<int>("Cs.bin", BP * R);
@@ -84,7 +88,8 @@ int main(int argc, char** argv) {
             Cs.data(), Thi.data(), Tlo.data(), W.data(), wsum.data(), wmax.data(), y.data(),
             n.data(), OT.data(), INS.data(), K.data(), bj.data(), bk.data(), chains.data(),
             &queue, B, P, R, rs);
-    });
+    }, at_once);
+    store("queue.bin", std::vector<int>{queue});
   }
   store("chains.bin", chains);
   store("K.bin", K);

@@ -112,6 +112,22 @@ def test_dispatch_coverage_gate_on_the_mesh(n_dev, route, shards, monkeypatch):
     assert shards[0][0] == n_dev and route in shards[0][1]
 
 
+@pytest.mark.parametrize("n_dev", [1, 2, 3])
+def test_dispatch_over_an_explicit_device_list(n_dev):
+    """``devices=`` splits the batch over exactly the devices listed, with
+    no gate and nothing patched, and counts one sharded launch per batch
+    split over more than one; the results equal solve_host."""
+    thr = ScaledThresholds(0.9)
+    rng = np.random.default_rng(60 + n_dev)
+    problems = [random_problem(rng, int(rng.integers(2, 20)), int(rng.integers(1, 30)))
+                for _ in range(9)]
+    assert tmesh.MESH_MIN_WORK is None
+    before = tmesh.SHARDED_LAUNCHES
+    got = tsegdp.solve_batch_device(problems, thr, device="cuda", devices=[CPU] * n_dev)
+    assert got == [solve_host(p, thr) for p in problems]
+    assert tmesh.SHARDED_LAUNCHES - before == (n_dev > 1)
+
+
 @pytest.mark.parametrize("gate,work,n_dev", [(100, 399, 1), (100, 400, 4), (None, 10**15, 1)])
 def test_bare_cuda_shards_from_the_work_gate(gate, work, n_dev, monkeypatch):
     """The bare "cuda" splits over every card once each card's share of

@@ -202,3 +202,58 @@ def test_cuda_device_without_gpu_raises():
 
     with pytest.raises(RuntimeError, match="cuda"):
         resolve_device("cuda")
+
+
+@pytest.mark.parametrize("with_intervals", [False, True], ids=["dense", "interval_lists"])
+def test_bucket_wider_than_the_kernel_goes_to_the_host(monkeypatch, with_intervals):
+    """A batch for a CUDA device whose padded P is above ``K1_MAX_P`` (patched
+    low; the dispatch's check needs only P and the device's type, so no
+    card is needed) is solved by solve_host before anything is padded or
+    shipped, on the dense and on the interval-list route: the results
+    equal the JAX package's solve_batch_device, nothing is launched and
+    the plain DP is not called. A CPU device has no such limit."""
+    from freddie_tpu_torch.ops import segdp_cuda
+
+    rng = np.random.default_rng(224)
+    thr = ScaledThresholds(0.9)
+    problems = [random_problem(rng, int(rng.integers(18, 25)), 12) for _ in range(5)]
+    if with_intervals:
+        for pr in problems:
+            pr.iv = np.zeros((4, 3), dtype=np.int32)  # enough to choose the route
+    want = jseg.solve_batch_device(
+        [DPProblem(C=p.C, y=p.y, W=p.W, read_support=p.read_support) for p in problems], thr)
+    monkeypatch.setattr(segdp_cuda, "K1_MAX_P", 16)
+    plain_calls = []
+    monkeypatch.setattr(segdp_cuda, "_solve_batch_torch",
+                        lambda *a, **k: plain_calls.append(1))
+    launches, routed = segdp_cuda.LAUNCHES, segdp_cuda.WIDE_HOST_BATCHES
+    routed_problems = segdp_cuda.WIDE_HOST_PROBLEMS
+    handles, work, results = tseg.dispatch_batch_device(problems, thr, device="cuda")
+    assert handles is None and work == []
+    assert results == want == [solve_host(p, thr) for p in problems]
+    assert segdp_cuda.WIDE_HOST_BATCHES == routed + 1
+    assert segdp_cuda.WIDE_HOST_PROBLEMS == routed_problems + len(problems)
+    assert segdp_cuda.LAUNCHES == launches and not plain_calls
+    # the same rule for an explicit list of cards; a list of CPU devices has no limit
+    res = tseg.dispatch_batch_device(problems, thr, devices=[torch.device("cuda", 0)] * 2)
+    assert res == (None, [], want) and segdp_cuda.WIDE_HOST_BATCHES == routed + 2
+    monkeypatch.undo()
+    monkeypatch.setattr(segdp_cuda, "K1_MAX_P", 16)
+    if not with_intervals:
+        handles, work, _res = tseg.dispatch_batch_device(problems, thr, device="cpu")
+        assert handles is not None and len(work) == len(problems)
+        handles, _work, _res = tseg.dispatch_batch_device(
+            problems, thr, device="cuda", devices=[torch.device("cpu")] * 2)
+        assert handles is not None
+        assert segdp_cuda.WIDE_HOST_BATCHES == routed + 2
+
+
+def test_k1_max_p_is_the_widest_that_fits_a_block():
+    """K1_MAX_P is the widest P whose wavefront state, 4 P^2 + 4 P bytes,
+    fits the shared memory the wrapper allows; the P = 256 bucket is past
+    it and the P = 224 bucket within."""
+    from freddie_tpu_torch.ops import segdp_cuda
+
+    P = segdp_cuda.K1_MAX_P
+    assert 4 * P * P + 4 * P <= segdp_cuda._MAX_SMEM < 4 * (P + 1) ** 2 + 4 * (P + 1)
+    assert tseg.bucket_shape(224, 128)[0] == 224 <= P < tseg.bucket_shape(225, 128)[0] == 256

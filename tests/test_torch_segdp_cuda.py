@@ -276,3 +276,38 @@ def test_mesh_on_one_card_matches_k1_and_host(cuda_device, n_shards, monkeypatch
     assert tseg.solve_batch_device(problems, thr, device="cuda") == [
         solve_host(p, thr) for p in problems]
     assert segdp_cuda.LAUNCHES == before + n_shards
+
+
+@pytest.mark.cuda
+def test_widest_bucket_launches_and_a_wider_one_goes_to_the_host(cuda_device):
+    """P = 224, the widest bucket K1 holds, is launched and bit-equal to the
+    plain version, chains included; problems of the P = 256 bucket sent
+    through the dispatch are solved by the host oracle without a launch;
+    the wrapper itself still raises at P = 256."""
+    from freddie_tpu_torch.ops import segdp_cuda
+
+    rng = np.random.default_rng(224)
+    thr = ScaledThresholds(0.9)
+    lookup = torch.from_numpy(thr.lookup).to(cuda_device)
+    C, y, W, n_cand = padded_batch(rng, 4, 224, 64, False)
+    n_cand[0] = 224
+    t = tseg.to_device(dict(C=C, y=y, W=W, n_cand=n_cand), cuda_device)
+    args = (t["C"], t["y"], t["W"], t["n_cand"], 3, lookup, thr.scale)
+    K, bj, bk, chains = segdp_cuda.solve_batch_cuda(*args, with_chains=True)
+    Kt, bjt, bkt = tseg._solve_batch_torch(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(bj, bjt) and torch.equal(bk, bkt)
+    assert torch.equal(K[:, :223], Kt[:, :223])
+    assert torch.equal(chains, tseg._walk_chains(Kt, bjt, bkt))
+
+    problems = [random_problem(rng, int(rng.integers(225, 250)), 16) for _ in range(3)]
+    launches, routed = segdp_cuda.LAUNCHES, segdp_cuda.WIDE_HOST_BATCHES
+    got = tseg.solve_batch_device(problems, thr, pad_p_to=256, device=cuda_device)
+    assert got == [solve_host(p, thr) for p in problems]
+    assert segdp_cuda.LAUNCHES == launches
+    assert segdp_cuda.WIDE_HOST_BATCHES == routed + 1
+
+    C, y, W, n_cand = padded_batch(rng, 1, 256, 64, False)
+    t = tseg.to_device(dict(C=C, y=y, W=W, n_cand=n_cand), cuda_device)
+    with pytest.raises(ValueError, match="shared memory"):
+        segdp_cuda.solve_batch_cuda(t["C"], t["y"], t["W"], t["n_cand"], 3, lookup, thr.scale)

@@ -10,7 +10,9 @@ layout, then the wavefront with its chain walk), and K2's one
 warp-specialised launch (the same two bodies in a producer and a consumer
 group with a per-slot hand-off) at grid sizes where a block gets one
 problem, several, or all of them, with either group stalled so that the
-hand-off is walked with the producer ahead and with the consumer ahead. The scratch starts as
+hand-off is walked with the producer ahead and with the consumer ahead,
+with the blocks run in turn (block 0 drains the work queue) and all at
+once (every block draws several problems while the others draw too). The scratch starts as
 garbage, so an entry that phase 1 leaves unwritten and the wavefront
 reads would show. It checks the
 kernels' indexing, live-tile logic, weight limbs, masks, reductions, tie
@@ -21,6 +23,7 @@ the GPU compiler decides; ``tests/test_torch_segdp_cuda.py`` and
 
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 
@@ -37,6 +40,10 @@ from test_torch_segdp_cuda import padded_batch
 REPO = pathlib.Path(__file__).resolve().parent.parent
 EMU = pathlib.Path(__file__).resolve().parent / "cuda_emu"
 DYN_SMEM = "extern __shared__ __align__(16) unsigned char segdp_dyn_smem[];"
+# A static shared array, `__shared__ T name[n];`: under the stand-in a
+# pointer into the running block's state, so that blocks run at once do
+# not share it.
+STATIC_SMEM = re.compile(r"__shared__\s+(\w+)\s+(\w+)\[(\w+)\];")
 
 
 @pytest.fixture(scope="module")
@@ -47,8 +54,12 @@ def emulator(tmp_path_factory):
     d = tmp_path_factory.mktemp("segdp_emu")
     src = (REPO / "freddie_tpu_torch" / "csrc" / "segdp_kernels.cuh").read_text()
     assert DYN_SMEM in src, "the kernel's dynamic shared memory declaration moved"
-    (d / "segdp_kernels_emu.cuh").write_text(
-        src.replace(DYN_SMEM, "unsigned char* segdp_dyn_smem = emu_dyn_smem;"))
+    src = src.replace(DYN_SMEM, "unsigned char* segdp_dyn_smem = emu_dyn_smem;")
+    src, n_static = STATIC_SMEM.subn(r"\1* \2 = emu_shared<\1>(\3, __COUNTER__);", src)
+    assert n_static >= 2, "the wavefront's reduction scratch declarations moved"
+    code = re.sub(r"//[^\n]*", "", src)
+    assert "__shared__" not in code, "a __shared__ declaration the stand-in does not rewrite"
+    (d / "segdp_kernels_emu.cuh").write_text(src)
     exe = d / "segdp_emu"
     subprocess.run(
         [cxx, "-std=c++20", "-O1", "-pthread", f"-I{EMU}", f"-I{d}",
@@ -76,14 +87,15 @@ def _full_short_batch(rng, B, P, R):
 
 
 def _run_and_check(emulator, tmp_path, B, P, R, wide, full, grid=(), rs=3, scale_w=1,
-                   short=False, full_short=False, stall=None):
+                   short=False, full_short=False, stall=None, at_once=None):
     """Runs the emulated kernels on a random padded batch (K2 when
     ``grid`` holds G) and holds them
     against _solve_batch_torch, and their chains against _walk_chains.
     ``short``: few candidates in a wide padding (dead blocks);
     ``scale_w``: weights past two 7-bit limbs; ``full_short``: the batch of
     _full_short_batch; ``stall``: "id:ms", every wait at named barrier id
-    delayed by ms milliseconds."""
+    delayed by ms milliseconds; ``at_once``: how many of K2's blocks run
+    concurrently (default: in turn)."""
     rng = np.random.default_rng(P * 7 + R + wide)
     thr = ScaledThresholds(0.9)
     if full_short:
@@ -107,7 +119,7 @@ def _run_and_check(emulator, tmp_path, B, P, R, wide, full, grid=(), rs=3, scale
     for name, a in inputs.items():
         np.ascontiguousarray(a.numpy(), dtype=np.int32).tofile(tmp_path / f"{name}.bin")
     subprocess.run([str(emulator), str(B), str(P), str(Cs.shape[2]), str(rs),
-                    *map(str, grid)],
+                    *map(str, grid), *([str(at_once)] if at_once else [])],
                    cwd=tmp_path, check=True, capture_output=True, timeout=300,
                    env={**os.environ, **({"EMU_STALL": stall} if stall else {})})
     K = np.fromfile(tmp_path / "K.bin", np.int32).reshape(B, P, P)
@@ -124,6 +136,10 @@ def _run_and_check(emulator, tmp_path, B, P, R, wide, full, grid=(), rs=3, scale
     np.testing.assert_array_equal(chains, tseg._walk_chains(Kt, bjt, bkt).numpy())
     if not grid:
         _check_live_scratch(tmp_path, C, y, W, n_cand, rs, thr)
+    else:
+        # Each block draws until it is handed a problem past the last: G
+        # first problems by block index, then B draws from the queue in all.
+        assert np.fromfile(tmp_path / "queue.bin", np.int32).tolist() == [B]
 
 
 def _check_live_scratch(tmp_path, C, y, W, n_cand, rs, thr):
@@ -228,3 +244,26 @@ def test_emulated_k2_handoff_slot_reuse_and_ownership(emulator, tmp_path, case):
     _run_and_check(emulator, tmp_path, case.pop("B"), case.pop("P"), case.pop("R"),
                    case.pop("wide", False), case.pop("full", False),
                    grid=(case.pop("G"),), **case)
+
+
+@pytest.mark.parametrize("case", [
+    dict(B=8, P=16, R=64, G=2),
+    dict(B=12, P=16, R=64, G=3),
+    dict(B=12, P=16, R=64, G=3, full_short=True),  # slots reused by unlike sizes
+    dict(B=8, P=16, R=64, G=2, stall=f"{CONSUMER_BAR}:3"),
+    dict(B=8, P=16, R=64, G=2, stall=f"{PRODUCER_BAR}:2"),
+    dict(B=12, P=16, R=64, G=3, wide=True, stall=f"{CONSUMER_BAR}:2"),
+    dict(B=8, P=24, R=32, G=2, full=True),  # a half-live row tile
+], ids=["two_blocks", "three_blocks", "three_blocks_reuse", "two_slow_consumers",
+        "two_slow_producers", "three_wide_slow_consumers", "two_blocks_full"])
+def test_emulated_k2_blocks_draw_from_the_queue_at_once(emulator, tmp_path, case):
+    """K2's G blocks run concurrently with B >= 4 G: every block, not only
+    block 0, draws several problems from the work queue while the others
+    draw too, each into its own pair of scratch slots. K, best_j, best_k
+    and the chains equal the plain version's, and the queue ends at B."""
+    case = dict(case)
+    G = case.pop("G")
+    assert case["B"] >= 4 * G
+    _run_and_check(emulator, tmp_path, case.pop("B"), case.pop("P"), case.pop("R"),
+                   case.pop("wide", False), case.pop("full", False), grid=(G,),
+                   at_once=G, **case)
