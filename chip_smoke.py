@@ -39,12 +39,20 @@ on the card:
    equal to the host oracle at B=5 and at the stage's buckets;
 7. runs the distributed pipeline in two gloo processes on card 0 and
    the ``workflow`` CLI, each byte-identical to the pipeline of 4;
-8. the widest bucket: a batch at P = 224 launched and bit-equal to the
-   plain version, chains included; problems of the P = 256 bucket through
-   the dispatch solved by the host oracle without a launch, the wrapper
-   still raising there; and ``segment --max-problem-size 250`` through
-   the CLI on a corpus with a 245-candidate problem, on the card and on
-   the CPU, byte-identical;
+8. the wide buckets, where the wavefront's H does not fit a block's
+   shared memory and lives in device memory: K1 at (8, 256, 128) and (2,
+   512, 128) bit-equal to the plain version, chains included, with time
+   and peak memory; K1 at (8, 224, 128) with the cap forced to 0 bit-equal
+   to its shared-memory route; K2 at (8, 256, 128) bit-equal to K1, driven
+   with the counts at zero; K1 at (8, 256, 128) in three groups under a
+   scratch budget forced low, bit-equal; problems of the P = 256 bucket
+   through the dispatch, launched and equal to the host oracle;
+   ``segment --max-problem-size 250`` through the CLI on a corpus with
+   buckets 192, 224 and 256, on the card and on the CPU, byte-identical;
+   and ``segment --max-problem-size 500`` on a corpus with a problem in
+   the P = 512 bucket, on the card and by the host-oracle route
+   (``--no-device``), byte-identical (the host-oracle run takes minutes
+   of one core, so it starts before phase 1 and runs beside phases 1-7);
 9. the segment stage on the card with a stream window of 5 tints (forced
    flushes of partial buckets), byte-identical to the run of 4;
 10. the entry points: ``entry(device)`` once and ``dryrun_multichip(4)``
@@ -636,17 +644,27 @@ print("RESULT " + json.dumps({"rank": rank, "records": len(merged),
 """
 
 # The port's CLI entry (what `python -m freddie_tpu_torch.cli` runs), then
-# the K1 launches it made and the batches its dispatch solved on the host
-# because their bucket is wider than K1 holds.
+# the K1 launches it made, whether jax was imported, the launches whose
+# wavefront held H in device memory, and the (B, P, R) of the launches.
 CLI = """
-import sys
+import json, sys
 from freddie_tpu_torch import cli
 from freddie_tpu_torch.ops import segdp_cuda
 rc = cli.main(sys.argv[1:])
-print("LAUNCHES", segdp_cuda.LAUNCHES, "jax" in sys.modules)
-print("WIDE_HOST_BATCHES", segdp_cuda.WIDE_HOST_BATCHES)
+print("LAUNCHES", segdp_cuda.LAUNCHES, "jax" in sys.modules, segdp_cuda.DEVICE_H_LAUNCHES)
+print("SHAPES", json.dumps(list(segdp_cuda.LAUNCH_SHAPES)))
 sys.exit(rc)
 """
+
+
+def cli_counts(stdout: str) -> tuple[int, int, list]:
+    """The K1 launches, device-memory-H launches and launch shapes that a
+    run of CLI printed; raises when it did not print them or imported jax."""
+    tail = [ln.split() for ln in stdout.splitlines() if ln.startswith("LAUNCHES ")]
+    shapes = [ln for ln in stdout.splitlines() if ln.startswith("SHAPES ")]
+    if not tail or tail[-1][2] != "False" or not shapes:
+        raise RuntimeError(f"the CLI did not report its launches, or imported jax: {tail}")
+    return int(tail[-1][1]), int(tail[-1][3]), json.loads(shapes[-1][len("SHAPES "):])
 
 
 def run_procs(cmds: list[list[str]], timeout: float) -> list[str]:
@@ -721,10 +739,7 @@ def workflow_phase(device: str, card, run: dict, workdir: str) -> int:
     (stdout,) = run_procs([[sys.executable, "-c", CLI, "workflow", cfg, "--device", device]],
                           timeout=600)
     wall = time.perf_counter() - t0
-    tail = [ln.split() for ln in stdout.splitlines() if ln.startswith("LAUNCHES ")]
-    if not tail or tail[-1][2] != "False":
-        raise RuntimeError(f"the workflow CLI did not report its launches, or imported jax: {tail}")
-    launches = int(tail[-1][1])
+    launches = cli_counts(stdout)[0]
     if launches <= 0:
         raise RuntimeError("the workflow never launched K1")
     if not filecmp.cmp(os.path.join(out, "results", "S1", "isoforms.gtf"),
@@ -744,17 +759,77 @@ WIDE_CORPUS = dict(
     indel_rate=0.15, alt_splice=True, junction_jitter=40, big_del_rate=0.1,
 )
 WIDE_FLAGS = ["--max-problem-size", "250", "--sigma", "1", "--variance-factor", "9.9"]
+# A corpus one of whose DP problems has 488 candidates (the P = 512
+# bucket) under P512_FLAGS: a wide junction jitter and a narrow smoothing
+# kernel make many candidates and few fixed breakpoints. The host oracle
+# takes minutes of one core over it (the (P, P, P) pair tensors of every
+# problem), so it starts early, beside the other phases (start_p512_host).
+P512_CORPUS = dict(WIDE_CORPUS, n_genes=1, seed=8, exons_per_gene=100, reads_per_isoform=30,
+                   junction_jitter=200)
+P512_FLAGS = ["--max-problem-size", "500", "--sigma", "0.5", "--variance-factor", "9.9"]
 
 
-def wide_phase(dev, card, workdir: str) -> int:
-    """The widest bucket. A batch of 8 at P = 224 (the widest bucket K1
-    holds) launched and bit-equal to the plain version, chains included;
-    problems of the P = 256 bucket through solve_batch_device equal to
-    solve_host with the host-route counter moved and LAUNCHES not;
-    solve_batch_cuda at P = 256 still raising; then the ``segment`` CLI
-    with --max-problem-size 250 on WIDE_CORPUS with --device cuda and
-    --device cpu, byte-identical. Returns the K1 launches of the CLI run
-    on the card."""
+def start_p512_host(workdir: str) -> dict:
+    """Simulates P512_CORPUS, splits it, and starts the ``segment`` CLI's
+    host-oracle route (--no-device) over it in a process of its own, its
+    output in files; the wide phase holds the card's run against it.
+    Returns where the corpus, the output and the process are."""
+    from freddie_tpu_torch.config import SplitConfig
+    from freddie_tpu_torch.stages.split import run_split
+    from freddie_tpu_torch.utils.sim import simulate
+
+    d = os.path.join(workdir, "p512")
+    os.makedirs(d)
+    sim = simulate(**P512_CORPUS)
+    bam, fq = os.path.join(d, "r.bam"), os.path.join(d, "r.fastq")
+    sim.write_bam(bam)
+    sim.write_fastq(fq)
+    split = os.path.join(d, "split")
+    run_split(bam, [fq], split, SplitConfig())
+    log_path = os.path.join(d, "host.log")
+    with open(log_path, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", CLI, "segment", "-s", split, "-o", os.path.join(d, "host"),
+             *P512_FLAGS, "--no-device"], cwd=REPO, stdout=f, stderr=subprocess.STDOUT)
+    return dict(dir=d, split=split, reads=len(sim.reads), proc=proc, log=log_path,
+                started=time.perf_counter())
+
+
+def wide_batch(dev, rng, B, P, R):
+    """solve_batch_cuda's arguments for a synthetic batch on ``dev`` whose
+    first problem fills all P candidates, and the batch's tensors."""
+    import torch
+
+    from freddie_tpu_torch.ops.segdp import ScaledThresholds, to_device
+
+    batch = synthetic_batch(rng, B, P, R, False)
+    batch["n_cand"][0] = P
+    thr = ScaledThresholds(0.9)
+    t = to_device(batch, dev)
+    return (t["C"], t["y"], t["W"], t["n_cand"], 3, torch.from_numpy(thr.lookup).to(dev),
+            thr.scale), t
+
+
+def same_result(a, b) -> bool:
+    """Two solve_batch_cuda results (with chains) equal tensor for tensor."""
+    import torch
+
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def wide_phase(dev, card, workdir: str, p512: dict) -> dict:
+    """The wide buckets, where the wavefront keeps H in device memory:
+    K1 at (8, 256, 128) and (2, 512, 128) against the plain version; K1 at
+    (8, 224, 128) with the cap forced to 0 against its shared-memory
+    route; K2 at (8, 256, 128), driven with the counts at zero, against
+    K1; K1 under a scratch budget forced low enough for three groups;
+    problems of the P = 256 bucket through solve_batch_device against
+    solve_host; and the ``segment`` CLI on the card against the CPU
+    (--max-problem-size 250, buckets up to 256) and against the host
+    oracle (--max-problem-size 500, a problem in the P = 512 bucket; its
+    host run was started by start_p512_host).
+    Returns the CLI runs' K1 launches and device-memory-H launches, K2's
+    device-memory-H launches, and the two wide kernel rows."""
     import numpy as np
     import torch
 
@@ -762,33 +837,92 @@ def wide_phase(dev, card, workdir: str) -> int:
     from freddie_tpu_torch.ops import segdp_cuda
     from freddie_tpu_torch.ops.segdp import (
         DPProblem, ScaledThresholds, _solve_batch_torch, _walk_chains, solve_batch_device,
-        solve_host, to_device)
+        solve_host)
     from freddie_tpu_torch.stages.split import run_split
     from freddie_tpu_torch.utils.sim import simulate
 
-    thr = ScaledThresholds(0.9)
-    lookup = torch.from_numpy(thr.lookup).to(dev)
-    rng = np.random.default_rng(224)
-    B, P, R = 8, 224, 128
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats(dev)
-    t = to_device(synthetic_batch(rng, B, P, R, False), dev)
-    args = (t["C"], t["y"], t["W"], t["n_cand"], 3, lookup, thr.scale)
-    K, bj, bk, chains = segdp_cuda.solve_batch_cuda(*args, with_chains=True)
-    torch.cuda.synchronize()
-    k1_mib = torch.cuda.max_memory_allocated(dev) / 2**20
-    plain = _solve_batch_torch(*args)
-    err = max_abs_diff((K, bj, bk), plain, P)
-    if err != 0 or not torch.equal(chains, _walk_chains(*plain)):
-        raise RuntimeError(f"K1 != plain at B={B} P={P} R={R}: max abs err {err}")
-    k1_ms = time_ms(lambda: segdp_cuda.solve_batch_cuda(*args))
-    log(f"[wide] K1 at B={B} P={P} R={R} (K1_MAX_P = {segdp_cuda.K1_MAX_P}): bit-equal to "
-        f"plain, chains equal to _walk_chains, {int((bj >= 0).sum())}/{B} segmented; "
-        f"{k1_ms:.3f} ms (median of {TIMED_REPS}); the call's peak device memory "
-        f"{k1_mib:.0f} MiB (its (B, P, P, P) scratch is {B * P**3 * 4 / 2**20:.0f} MiB); on {card}")
-    del t, args, K, bj, bk, chains, plain
+    rng = np.random.default_rng(256)
+    rows = {}
+    for B, P, R in ((8, 256, 128), (2, 512, 128)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        args, t = wide_batch(dev, rng, B, P, R)
+        k1 = segdp_cuda.solve_batch_cuda(*args, with_chains=True)
+        torch.cuda.synchronize()
+        k1_mib = torch.cuda.max_memory_allocated(dev) / 2**20
+        plain = _solve_batch_torch(*args)
+        err = max_abs_diff(k1[:3], plain, P)
+        if err != 0 or not torch.equal(k1[3], _walk_chains(*plain)):
+            raise RuntimeError(f"K1 != plain at B={B} P={P} R={R}: max abs err {err}")
+        del plain
+        k1_ms = time_ms(lambda: segdp_cuda.solve_batch_cuda(*args))
+        p_ms = time_ms(lambda: _solve_batch_torch(*args))
+        b_ms, b_by, by_bytes, by_ops = bound_ms(t, P)
+        log(f"[wide] K1 at B={B} P={P} R={R} (H in device memory above K1_SMEM_MAX_P = "
+            f"{segdp_cuda.K1_SMEM_MAX_P}; {segdp_cuda.group_size(B, P)} problems a group): "
+            f"bit-equal to plain, chains equal to _walk_chains, "
+            f"{int((k1[1] >= 0).sum())}/{B} segmented; {k1_ms:.3f} ms, plain {p_ms:.3f} ms "
+            f"(medians of {TIMED_REPS}); bound {b_ms:.4f} ms by {b_by} (bytes {by_bytes:.4f} "
+            f"ms, operations {by_ops:.4f} ms); the call's peak device memory {k1_mib:.0f} MiB; "
+            f"on {card}")
+        if P == 256:
+            wide_args, k1_256 = args, k1
+            rows["K1 wide (device-memory H)"] = dict(
+                max_abs_err=err, ms=k1_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
+        del args, t, k1
     torch.cuda.empty_cache()
 
+    # The two wavefronts on a batch that both take: P = 224, cap 0 or not.
+    args, _t = wide_batch(dev, rng, 8, 224, 128)
+    smem = segdp_cuda.solve_batch_cuda(*args, with_chains=True)
+    gmem = segdp_cuda.solve_batch_cuda(*args, with_chains=True, smem_max_p=0)
+    if not same_result(smem, gmem):
+        raise RuntimeError("K1 at P = 224: the device-memory wavefront != the shared-memory one")
+    smem_ms = time_ms(lambda: segdp_cuda.solve_batch_cuda(*args))
+    gmem_ms = time_ms(lambda: segdp_cuda.solve_batch_cuda(*args, smem_max_p=0))
+    log(f"[wide] K1 at B=8 P=224 R=128 with the cap forced to 0 (H in device memory): "
+        f"K, best_j, best_k and the chains equal to the shared-memory route's; "
+        f"{gmem_ms:.3f} ms against {smem_ms:.3f} ms (medians of {TIMED_REPS}), on {card}")
+    del args, _t, smem, gmem
+
+    # K2's path above K2_SMEM_MAX_P, driven once with every count at zero.
+    segdp_cuda.LAUNCHES = segdp_cuda.DEVICE_H_LAUNCHES = 0
+    segdp_cuda.PIPELINED_LAUNCHES = segdp_cuda.PIPELINED_DEVICE_H_LAUNCHES = 0
+    k2 = segdp_cuda.solve_batch_cuda(*wide_args, pipelined=True, with_chains=True)
+    torch.cuda.synchronize()
+    k2_launches = segdp_cuda.PIPELINED_DEVICE_H_LAUNCHES
+    if k2_launches <= 0 or segdp_cuda.LAUNCHES != 0:
+        raise RuntimeError(f"K2's wide path made {k2_launches} device-memory-H K2 launches "
+                           f"and {segdp_cuda.LAUNCHES} K1 launches")
+    if not same_result(k2, k1_256):
+        raise RuntimeError("K2 at P = 256 != K1")
+    k2_ms = time_ms(lambda: segdp_cuda.solve_batch_cuda(*wide_args, pipelined=True))
+    rows["K2 wide"] = dict(rows["K1 wide (device-memory H)"], ms=k2_ms)
+    log(f"[wide] K2 at B=8 P=256 R=128 (grid {segdp_cuda.pipelined_grid(8, 256)}, H in device "
+        f"memory above K2_SMEM_MAX_P = {segdp_cuda.K2_SMEM_MAX_P}; the runtime reports "
+        f"{json.dumps(segdp_cuda.pipelined_occupancy(256))}): {k2_launches} launch with the "
+        f"counts at zero, equal to K1, chains included; {k2_ms:.3f} ms (median of "
+        f"{TIMED_REPS}), on {card}")
+
+    # A scratch budget forced low: K1 solves the batch in three groups.
+    budget = segdp_cuda.SCRATCH_BUDGET
+    segdp_cuda.SCRATCH_BUDGET = 3 * segdp_cuda.scratch_bytes(256)
+    try:
+        g = segdp_cuda.group_size(8, 256)
+        grouped = segdp_cuda.solve_batch_cuda(*wide_args, with_chains=True)
+        grouped_ms = time_ms(lambda: segdp_cuda.solve_batch_cuda(*wide_args))
+    finally:
+        segdp_cuda.SCRATCH_BUDGET = budget
+    if -(-8 // g) < 3 or not same_result(grouped, k1_256):
+        raise RuntimeError(f"K1 in groups of {g} at P = 256 != K1 in one group")
+    log(f"[wide] K1 at B=8 P=256 R=128 in groups of {g} ({-(-8 // g)} groups on one set of "
+        f"scratch buffers): equal to the batch in one group; {grouped_ms:.3f} ms (median of "
+        f"{TIMED_REPS}), on {card}")
+    del wide_args, k1_256, k2, grouped
+    torch.cuda.empty_cache()
+
+    thr = ScaledThresholds(0.9)
     problems = []
     for _ in range(3):
         p, r = int(rng.integers(225, 251)), 24
@@ -798,21 +932,15 @@ def wide_phase(dev, card, workdir: str) -> int:
         y[0] = 0
         problems.append(DPProblem(C=np.cumsum(inc, axis=0).astype(np.int64), y=y,
                                   W=rng.integers(1, 5, size=r).astype(np.int64), read_support=3))
-    launches, routed = segdp_cuda.LAUNCHES, segdp_cuda.WIDE_HOST_BATCHES
+    segdp_cuda.LAUNCHES = segdp_cuda.DEVICE_H_LAUNCHES = 0
     got = solve_batch_device(problems, thr, pad_p_to=256, pad_r_to=128, device=dev)
     if got != [solve_host(pr, thr) for pr in problems]:
         raise RuntimeError("the P = 256 bucket through the dispatch != solve_host")
-    if segdp_cuda.LAUNCHES != launches or segdp_cuda.WIDE_HOST_BATCHES != routed + 1:
-        raise RuntimeError("the P = 256 bucket was not routed to the host oracle")
-    t = to_device(synthetic_batch(rng, 1, 256, 64, False), dev)
-    try:
-        segdp_cuda.solve_batch_cuda(t["C"], t["y"], t["W"], t["n_cand"], 3, lookup, thr.scale)
-    except ValueError as e:
-        log(f"[wide] {len(problems)} problems of {[len(pr.y) for pr in problems]} candidates "
-            f"(the P = 256 bucket) through solve_batch_device: equal to solve_host, 0 launches, "
-            f"1 batch routed to the host; solve_batch_cuda at P = 256 raises: {e}")
-    else:
-        raise RuntimeError("solve_batch_cuda took P = 256")
+    if segdp_cuda.LAUNCHES != 1 or segdp_cuda.DEVICE_H_LAUNCHES != 1:
+        raise RuntimeError(f"the P = 256 bucket made {segdp_cuda.LAUNCHES} K1 launches")
+    log(f"[wide] {len(problems)} problems of {[len(pr.y) for pr in problems]} candidates "
+        f"(the P = 256 bucket) through solve_batch_device: 1 K1 launch with H in device "
+        f"memory, equal to solve_host")
 
     d = os.path.join(workdir, "wide")
     os.makedirs(d)
@@ -821,19 +949,41 @@ def wide_phase(dev, card, workdir: str) -> int:
     sim.write_bam(bam)
     sim.write_fastq(fq)
     run_split(bam, [fq], os.path.join(d, "split"), SplitConfig())
-    outs = run_procs([[sys.executable, "-c", CLI, "segment", "-s", os.path.join(d, "split"),
-                       "-o", os.path.join(d, name), *WIDE_FLAGS, "--device", name]
-                      for name in (dev.type, "cpu")], timeout=600)
-    tail = [ln.split() for ln in outs[0].splitlines() if ln.startswith("LAUNCHES ")]
-    routed = [ln.split() for ln in outs[0].splitlines() if ln.startswith("WIDE_HOST_BATCHES ")]
-    if not tail or not routed or int(tail[-1][1]) <= 0 or int(routed[-1][1]) <= 0:
-        raise RuntimeError(f"the wide segment run reported {tail} launches, {routed} routed")
-    names = same_tsvs(os.path.join(d, dev.type), os.path.join(d, "cpu"),
-                      "segment --max-problem-size 250, card against cpu")
-    log(f"[wide] cli segment {' '.join(WIDE_FLAGS)} on {len(sim.reads)} reads: --device "
-        f"{dev.type} made {tail[-1][1]} K1 launches and routed {routed[-1][1]} batch(es) to "
-        f"the host; {len(names)} segment TSVs byte-identical to --device cpu")
-    return int(tail[-1][1])
+    segment = [sys.executable, "-c", CLI, "segment"]
+    outs = run_procs([
+        segment + ["-s", os.path.join(d, "split"), "-o", os.path.join(d, out), *WIDE_FLAGS,
+                   "--device", out] for out in (dev.type, "cpu")
+    ] + [segment + ["-s", p512["split"], "-o", os.path.join(p512["dir"], dev.type),
+                    *P512_FLAGS, "--device", dev.type]], timeout=600)
+    rc = p512["proc"].wait(timeout=900)
+    with open(p512["log"]) as f:
+        host_log = f.read()
+    if rc != 0:
+        raise RuntimeError(f"segment {' '.join(P512_FLAGS)} --no-device exited {rc}:\n"
+                           f"{host_log[-3000:]}")
+    log(f"[wide] the host-oracle route over the P = 512 corpus ended "
+        f"{time.perf_counter() - p512['started']:.1f} s after it started")
+    k1_launches = h_launches = 0
+    for what, flags, out, card_dir, other_dir, want in (
+            ("--device cpu", WIDE_FLAGS, outs[0], os.path.join(d, dev.type), os.path.join(d, "cpu"),
+             {192, 224, 256}),
+            ("the host-oracle route (--no-device)", P512_FLAGS, outs[2],
+             os.path.join(p512["dir"], dev.type), os.path.join(p512["dir"], "host"), {512})):
+        launches, on_device, shapes = cli_counts(out)
+        widths = {P for _B, P, _R in shapes}
+        if launches < len(want) or on_device <= 0 or not want <= widths:
+            raise RuntimeError(f"segment {' '.join(flags)}: {launches} K1 launches, {on_device} "
+                               f"with H in device memory, at widths {sorted(widths)}")
+        names = same_tsvs(card_dir, other_dir, f"segment {' '.join(flags)}, card against {what}")
+        n_reads = len(sim.reads) if flags is WIDE_FLAGS else p512["reads"]
+        log(f"[wide] cli segment {' '.join(flags)} on {n_reads} reads: --device {dev.type} "
+            f"made {launches} K1 launches ({on_device} with H in device memory) at (B, P, R) "
+            f"{sorted(set(map(tuple, shapes)))}; {len(names)} segment TSVs byte-identical to "
+            f"{what}")
+        k1_launches += launches
+        h_launches += on_device
+    return dict(k1_launches=k1_launches, k1_device_h_launches=h_launches,
+                k2_device_h_launches=k2_launches, rows=rows)
 
 
 def window_phase(dev, card, run: dict, workdir: str) -> int:
@@ -971,37 +1121,51 @@ def main(argv=None) -> int:
         log(f"[time] {name}: {time.perf_counter() - t0:.1f} s")
         return out
 
-    kern = timed("kernels", kernel_phase, dev, card)
-    pipe_launches = timed("pipelined", pipelined_path, dev, card)
-    if opts.kernels:
-        log("[kernels] kernel phases only: the paths were not driven, no result line")
-        return 3
-    timed("cluster", cluster_phase, dev, card)
     workdir = tempfile.mkdtemp(prefix=".chip_smoke-", dir=REPO)
-    by_path = {}
+    by_path, p512 = {}, None
     try:
+        if not opts.kernels:
+            p512 = timed("p512 corpus", start_p512_host, workdir)
+        kern = timed("kernels", kernel_phase, dev, card)
+        pipe_launches = timed("pipelined", pipelined_path, dev, card)
+        if opts.kernels:
+            log("[kernels] kernel phases only: the paths were not driven, no result line")
+            return 3
+        timed("cluster", cluster_phase, dev, card)
         by_path["pipeline"], run = timed("pipeline", pipeline_phase, dev, workdir)
         by_path["polya"] = timed("polya", polya_phase, dev, card, run, workdir)
         by_path["mesh"] = timed("mesh", mesh_phase, dev, card)
         by_path["dist"] = timed("dist", dist_phase, dev.type, card, run, workdir)
         by_path["workflow"] = timed("workflow", workflow_phase, dev.type, card, run, workdir)
-        by_path["wide"] = timed("wide", wide_phase, dev, card, workdir)
+        wide = timed("wide", wide_phase, dev, card, workdir, p512)
+        by_path["wide"] = wide["k1_launches"]
         by_path["window"] = timed("window", window_phase, dev, card, run, workdir)
         by_path["entry"] = timed("entry", entry_phase, dev, card)
         timed("tools", tools_phase, dev, card)
         if opts.fuzz:
             timed("fuzz", fuzz_phase, dev, card, opts.fuzz)
     finally:
+        if p512 is not None and p512["proc"].poll() is None:
+            p512["proc"].kill()
+            p512["proc"].wait()
         shutil.rmtree(workdir, ignore_errors=True)
     if "jax" in sys.modules:
         raise RuntimeError("jax was imported")
 
     log(f"[time] the whole run, from the build's end: {time.perf_counter() - started:.1f} s")
-    log(f"[kernels] segdp (K1) launches by path: {json.dumps(by_path)}; "
-        f"segdp_pipelined (K2): {json.dumps({'pipelined': pipe_launches})}")
+    log(f"[kernels] segdp (K1) launches by path: {json.dumps(by_path)}, of which with H in "
+        f"device memory: {json.dumps({'wide': wide['k1_device_h_launches']})}; "
+        f"segdp_pipelined (K2): {json.dumps({'pipelined': pipe_launches})}, with H in device "
+        f"memory: {json.dumps({'wide': wide['k2_device_h_launches']})}")
+    if wide["k1_device_h_launches"] <= 0 or wide["k2_device_h_launches"] <= 0:
+        raise RuntimeError("a wide route was launched no time in its run")
     log(card)
+    kern.update(wide["rows"])
     rows = [("segdp", "freddie_tpu/ops/segdp_pallas.py:65", sum(by_path.values())),
-            ("segdp_pipelined", "freddie_tpu/ops/segdp_pallas.py:445", pipe_launches)]
+            ("segdp_pipelined", "freddie_tpu/ops/segdp_pallas.py:445", pipe_launches),
+            ("K1 wide (device-memory H)", "freddie_tpu/ops/segdp_pallas.py:65",
+             wide["k1_device_h_launches"]),
+            ("K2 wide", "freddie_tpu/ops/segdp_pallas.py:445", wide["k2_device_h_launches"])]
     log(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",

@@ -14,9 +14,11 @@
 
 namespace {
 
-// Dynamic shared memory of the wavefront (K1's launch 2, and part of K2's): H and ys.
-size_t dyn_smem(int P) {
-  return (size_t)P * P * sizeof(float) + (size_t)P * sizeof(int);
+// Dynamic shared memory of the wavefront (K1's launch 2, and part of K2's):
+// H and ys when H lives in shared memory, ys alone when it lives in
+// device memory.
+size_t dyn_smem(int P, bool smem_h) {
+  return (smem_h ? (size_t)P * P * sizeof(float) : 0) + (size_t)P * sizeof(int);
 }
 
 // Lets `kernel` take `bytes` of dynamic shared memory when its static and
@@ -47,35 +49,41 @@ cudaError_t launch_pair_stats(const int* Cs, const int* Thi, const int* Tlo, con
 }
 
 // K2 at width P, one instantiation per PairSmem size as for K1's launch
-// 1, and in *dyn the dynamic shared memory it takes: the pair statistics'
-// slots, the wavefront's H and ys, and the four ints of hand-off state.
-using PipeKernel = decltype(&segdp::segdp_pipelined_kernel<segdp::kTile>);
-PipeKernel pipe_kernel(int P, size_t* dyn) {
+// 1 and per home of H (shared memory when smem_h), and in *dyn the
+// dynamic shared memory it takes: the pair statistics' slots, the
+// wavefront's H (when smem_h) and ys, and the four ints of hand-off state.
+using PipeKernel = decltype(&segdp::segdp_pipelined_kernel<segdp::kTile, true>);
+PipeKernel pipe_kernel(int P, bool smem_h, size_t* dyn) {
   const bool one_set = P <= segdp::kTile;
   *dyn = (one_set ? sizeof(segdp::PairSmem<segdp::kTile>)
                   : sizeof(segdp::PairSmem<2 * segdp::kTile>)) +
-         dyn_smem(P) + 4 * sizeof(int);
-  return one_set ? &segdp::segdp_pipelined_kernel<segdp::kTile>
-                 : &segdp::segdp_pipelined_kernel<2 * segdp::kTile>;
+         dyn_smem(P, smem_h) + 4 * sizeof(int);
+  if (one_set)
+    return smem_h ? &segdp::segdp_pipelined_kernel<segdp::kTile, true>
+                  : &segdp::segdp_pipelined_kernel<segdp::kTile, false>;
+  return smem_h ? &segdp::segdp_pipelined_kernel<2 * segdp::kTile, true>
+                : &segdp::segdp_pipelined_kernel<2 * segdp::kTile, false>;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory the wavefront launch needs at width P.
-size_t segdp_wavefront_smem(int P) { return dyn_smem(P); }
-
 // Solves B padded problems with K1 (two launches); R must be a multiple
 // of kMmaStage (reps padded with zero weights); wmax: (B,) each problem's
-// largest weight, chains: (B, P+2) the walked breakpoint chains.
-// Returns 0 or the cudaError_t of the first launch the runtime refused
-// (cudaGetLastError after each launch).
+// largest weight, chains: (B, P+2) the walked breakpoint chains. The
+// wavefront keeps H in shared memory when P <= smem_max_p, and otherwise
+// in H: (B, P, P) f32 scratch in device memory (may be null when P <=
+// smem_max_p). Returns 0 or the cudaError_t of the first launch the
+// runtime refused (cudaGetLastError after each launch).
 int segdp_solve(const int* Cs, const int* Thi, const int* Tlo, const int* W,
                 const int* wsum, const int* wmax, const int* y, const int* n_cand,
-                float* OT, float* INS, int* K, int* best_j, int* best_k,
-                int* chains, int B, int P, int R, int read_support, void* stream) {
-  if (B <= 0 || P <= 0 || R < 0 || R % segdp::kMmaStage != 0 || B > 65535)
+                float* OT, float* INS, float* H, int* K, int* best_j, int* best_k,
+                int* chains, int B, int P, int R, int read_support, int smem_max_p,
+                void* stream) {
+  const bool smem_h = P <= smem_max_p;
+  if (B <= 0 || P <= 0 || R < 0 || R % segdp::kMmaStage != 0 || B > 65535 ||
+      (!smem_h && H == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 
@@ -87,31 +95,28 @@ int segdp_solve(const int* Cs, const int* Thi, const int* Tlo, const int* W,
                                                               read_support, s);
   if (err != cudaSuccess) return (int)err;
 
-  const size_t smem = dyn_smem(P);
-  err = opt_in_smem(segdp::wavefront_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  segdp::wavefront_kernel<<<B, segdp::kThreads, smem, s>>>(
-      OT, INS, y, n_cand, K, best_j, best_k, chains, P);
+  const size_t smem = dyn_smem(P, smem_h);
+  if (smem_h) {
+    err = opt_in_smem(segdp::wavefront_kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    segdp::wavefront_kernel<<<B, segdp::kThreads, smem, s>>>(
+        OT, INS, y, n_cand, K, best_j, best_k, chains, P);
+  } else {
+    err = opt_in_smem(segdp::wavefront_gmem_kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    segdp::wavefront_gmem_kernel<<<B, segdp::kThreads, smem, s>>>(
+        OT, INS, y, n_cand, H, K, best_j, best_k, chains, P);
+  }
   return (int)cudaGetLastError();
 }
 
-// Shared memory (static + dynamic) one block of K2 takes at width P, or 0
-// when the runtime cannot say.
-size_t segdp_pipelined_smem(int P) {
+// What the runtime reports for K2 at width P on the current device, H in
+// shared memory when P <= smem_max_p: out[0] the SMs, out[1] the blocks
+// of K2 an SM holds at once, out[2] the registers per thread, out[3] the
+// shared memory per block (static + dynamic). Returns 0 or a cudaError_t.
+int segdp_pipelined_occupancy(int P, int smem_max_p, int* out) {
   size_t dyn = 0;
-  cudaFuncAttributes attr;
-  if (cudaFuncGetAttributes(&attr, pipe_kernel(P, &dyn)) != cudaSuccess) return 0;
-  return attr.sharedSizeBytes + dyn;
-}
-
-// What the runtime reports for K2 at width P on the current device:
-// out[0] the SMs, out[1] the blocks of K2 an SM holds at once, out[2] the
-// registers per thread, out[3] the shared memory per block (static +
-// dynamic). K2's grid is out[0] * out[1], or B when smaller. Returns 0 or
-// a cudaError_t.
-int segdp_pipelined_occupancy(int P, int* out) {
-  size_t dyn = 0;
-  PipeKernel kernel = pipe_kernel(P, &dyn);
+  PipeKernel kernel = pipe_kernel(P, P <= smem_max_p, &dyn);
   int dev = 0, sms = 0, per_sm = 0;
   cudaFuncAttributes attr;
   cudaError_t err = cudaGetDevice(&dev);
@@ -132,22 +137,26 @@ int segdp_pipelined_occupancy(int P, int* out) {
 
 // Solves B padded problems with K2 in one launch of G blocks (1 <= G <=
 // B); R a multiple of kMmaStage, wmax and chains as for segdp_solve. OT:
-// (G, 2, P, P, P) and INS: (G, 2, P, P) scratch. queue: one int at zero,
-// from which the blocks draw their problems. Returns 0 or the cudaError_t
-// of the refused launch.
+// (G, 2, P, P, P) and INS: (G, 2, P, P) scratch; H: (G, P, P) scratch,
+// used when P > smem_max_p (may be null otherwise). queue: one int at
+// zero, from which the blocks draw their problems. Returns 0 or the
+// cudaError_t of the refused launch.
 int segdp_solve_pipelined(const int* Cs, const int* Thi, const int* Tlo,
                           const int* W, const int* wsum, const int* wmax,
-                          const int* y, const int* n_cand, float* OT, float* INS,
+                          const int* y, const int* n_cand, float* OT, float* INS, float* H,
                           int* K, int* best_j, int* best_k, int* chains, int* queue,
-                          int B, int P, int R, int read_support, int G, void* stream) {
-  if (B <= 0 || P <= 0 || R < 0 || R % segdp::kMmaStage != 0 || G <= 0 || G > B)
+                          int B, int P, int R, int read_support, int G, int smem_max_p,
+                          void* stream) {
+  const bool smem_h = P <= smem_max_p;
+  if (B <= 0 || P <= 0 || R < 0 || R % segdp::kMmaStage != 0 || G <= 0 || G > B ||
+      (!smem_h && H == nullptr))
     return (int)cudaErrorInvalidValue;
   size_t dyn = 0;
-  PipeKernel kernel = pipe_kernel(P, &dyn);
+  PipeKernel kernel = pipe_kernel(P, smem_h, &dyn);
   cudaError_t err = opt_in_smem(kernel, dyn);
   if (err != cudaSuccess) return (int)err;
   kernel<<<G, segdp::kPipeThreads, dyn, static_cast<cudaStream_t>(stream)>>>(
-      Cs, Thi, Tlo, W, wsum, wmax, y, n_cand, OT, INS, K, best_j, best_k, chains, queue,
+      Cs, Thi, Tlo, W, wsum, wmax, y, n_cand, OT, INS, H, K, best_j, best_k, chains, queue,
       B, P, R, read_support);
   return (int)cudaGetLastError();
 }

@@ -13,7 +13,8 @@
 //    pair_stats_mma_body, serves both kernels: the contraction on the
 //    tensor cores, only over the entries the wavefront reads (below).
 //  - wavefront_body (phases 2-3 and the chain walk), one problem on a
-//    group of warps. H (P x P f32) lives in shared memory; the backward
+//    group of warps. H (P x P f32) lives in shared memory where it fits
+//    the block, in device memory above that (below); the backward
 //    wavefront over j is P strictly dependent steps, each a set of
 //    independent masked row maxima (one warp per row, first-index
 //    tie-break) read from the OT plane j, touching only the rows that can
@@ -29,6 +30,20 @@
 // launches with the outside tensor in global memory: pair_stats_kernel,
 // grid (P, B), one block per (problem, k); then wavefront_kernel, grid
 // (B), one block per problem.
+//
+// Where H lives. H is 4 P^2 bytes: with ys it fits one block's shared
+// memory up to P = 240 (segdp_cuda.K1_SMEM_MAX_P), and wavefront_kernel
+// keeps it there. Above, wavefront_gmem_kernel runs the same body on a
+// (B, P, P) f32 plane per problem in device memory that the wrapper
+// allocates, with only ys in shared memory; at P = 256 a plane is 256
+// KiB, so a batch of 8 stays in the 50 MB L2. Phase 1 tiles any P, and
+// its output is in device memory already, so nothing else changes with
+// P. The host entry picks the wavefront by P against a cap the caller
+// passes (routing by shape; a cap of 0 forces the device-memory route at
+// any P, which is how the tests reach it at small shapes). The wrapper
+// solves the batch in groups whose scratch fits a budget, reusing one
+// set of scratch buffers, so the (P, P, P) plane per problem (512 MiB at
+// P = 512) never has to be held for the whole batch at once.
 //
 // Phase 1 on this card (pair_stats_mma_body; K1 runs one block per
 // (problem, k), K2's producer group runs a problem's k in turn):
@@ -109,7 +124,12 @@
 //  - Shared memory, all dynamic: one PairSmem, then H, ys and four ints
 //    of hand-off state: 70 KB at P <= 64, two blocks of 12 warps per SM;
 //    a wider problem takes PairSmem<128> (105 KB), one block per SM, and
-//    fits up to P = 176.
+//    fits up to P = 176 (segdp_cuda.K2_SMEM_MAX_P). Above that cap (the
+//    template's kSmemH false) the consumer's H is the block's own (P, P)
+//    plane of a (G, P, P) f32 scratch in device memory, indexed by the
+//    block and not by the problem: two blocks that run at once must never
+//    share one. G is also bounded by the scratch the wrapper's budget
+//    allows; the queue is right for every G >= 1.
 //  - Registers are what stop a third block: two blocks of 384 threads
 //    get 80 registers a thread, and the phase-1 body inside the step loop
 //    spills at 80. The consumer needs 32, so at P <= 64 it releases the
@@ -470,10 +490,12 @@ __device__ __forceinline__ void pair_stats_mma_body(
 
 // Phases 2-3 of one problem, on `nwarps` warps (tid 0..32*nwarps-1, at
 // most kWarps) sharing barrier `bar`. Reads OTb/INb as phase 1 wrote them,
-// yb: (P,) positions, n_cand; H: P*P floats and ys: P ints of shared
-// memory. Writes Kb: (P, P) backpointers (rows 0..P-2; row P-1 holds
-// best_j, best_k in columns 0 and 1, -1 elsewhere, as the TPU kernel
-// stores them) and *bj, *bk; and, when `chain` is not null, the P+2
+// yb: (P,) positions, n_cand; H: P*P floats of shared memory or of device
+// memory that only this group reads and writes (wavefront_gmem_kernel
+// says why that is safe); ys: P ints of shared memory. Writes Kb: (P, P)
+// backpointers (rows 0..P-2; row P-1 holds best_j, best_k in columns 0
+// and 1, -1 elsewhere, as the TPU kernel stores them) and *bj, *bk; and,
+// when `chain` is not null, the P+2
 // entries of the breakpoint chain: best_j, best_k, then K[j][k] followed
 // from the top pair while it is >= 0, -1 from there on (all -1 when no
 // segmentation won). Only entries that phase 1 writes are read.
@@ -624,30 +646,57 @@ wavefront_kernel(const float* __restrict__ OT, const float* __restrict__ INS,
                  P, H, ys, threadIdx.x, kWarps, 0);
 }
 
+// K1, launch 2 where H does not fit a block's shared memory: grid (B), as
+// wavefront_kernel, with Hs: (B, P, P) f32 scratch in device memory, the
+// plane of problem b for block b, and only ys (P ints) in dynamic shared
+// memory. Hs is written and read inside this launch, so it is neither
+// const nor __restrict__: nothing may let the compiler load it through
+// the non-coherent path (ld.global.nc), which need not see the launch's
+// own writes. wavefront_body's step barrier (bar.sync, through
+// group_sync) orders row j's writes before the next step's reads of it,
+// in device memory as in shared memory: every thread that reads H is in
+// the block that wrote it.
+__global__ void __launch_bounds__(kThreads)
+wavefront_gmem_kernel(const float* __restrict__ OT, const float* __restrict__ INS,
+                      const int* __restrict__ y, const int* __restrict__ n_cand, float* Hs,
+                      int* K, int* __restrict__ best_j, int* __restrict__ best_k,
+                      int* __restrict__ chains, int P) {
+  extern __shared__ __align__(16) unsigned char segdp_dyn_smem[];
+  int* ys = reinterpret_cast<int*>(segdp_dyn_smem);
+  const int b = blockIdx.x;
+  const long long PP = (long long)P * P;
+  wavefront_body(OT + b * PP * P, INS + b * PP, y + (long long)b * P, n_cand[b],
+                 K + b * PP, best_j + b, best_k + b, chains + (long long)b * (P + 2),
+                 P, Hs + b * PP, ys, threadIdx.x, kWarps, 0);
+}
+
 // K2, grid (G) with G <= B, kPipeThreads threads: threads below
 // kMmaThreads produce, the rest consume (design in the header). Inputs and
 // outputs as K1's; OT: (G, 2, P, P, P) and INS: (G, 2, P, P) are per-block
 // scratch slots (not restrict: written and read within the launch, so no
 // load of them may take the non-coherent path). queue: one int at zero
 // from which the blocks draw problems G, G+1, ... kSlots as for K1's
-// launch 1. Dynamic shared memory: one PairSmem<kSlots>, P*P floats, P
-// ints, 4 ints.
-template <int kSlots>
+// launch 1. kSmemH: H in shared memory; otherwise Hg: (G, P, P) f32, the
+// plane of block g for block g (not restrict, for the reason OT is not;
+// ignored when kSmemH). Dynamic shared memory: one PairSmem<kSlots>, P*P
+// floats when kSmemH, P ints, 4 ints.
+template <int kSlots, bool kSmemH>
 __global__ void __launch_bounds__(kPipeThreads, kSlots == kTile ? 2 : 1)
 segdp_pipelined_kernel(const int* __restrict__ Cs, const int* __restrict__ Thi,
                        const int* __restrict__ Tlo, const int* __restrict__ Wt,
                        const int* __restrict__ wsum, const int* __restrict__ wmax,
                        const int* __restrict__ y, const int* __restrict__ n_cand,
-                       float* OT, float* INS, int* K, int* __restrict__ best_j,
+                       float* OT, float* INS, float* Hg, int* K, int* __restrict__ best_j,
                        int* __restrict__ best_k, int* __restrict__ chains, int* queue,
                        int B, int P, int R, int read_support) {
   extern __shared__ __align__(16) unsigned char segdp_dyn_smem[];
   PairSmem<kSlots>* pair = reinterpret_cast<PairSmem<kSlots>*>(segdp_dyn_smem);
-  float* H = reinterpret_cast<float*>(segdp_dyn_smem + sizeof(PairSmem<kSlots>));
-  int* ys = reinterpret_cast<int*>(H + P * P);
+  unsigned char* after_pair = segdp_dyn_smem + sizeof(PairSmem<kSlots>);
+  const int g = blockIdx.x;
+  float* H = kSmemH ? reinterpret_cast<float*>(after_pair) : Hg + (long long)g * P * P;
+  int* ys = kSmemH ? reinterpret_cast<int*>(H + P * P) : reinterpret_cast<int*>(after_pair);
   volatile int* prob = ys + P;    // [slot]: the problem the slot holds, or >= B: the end
   volatile int* next = prob + 2;  // [slot]: thread 0's draw from the queue
-  const int g = blockIdx.x;
   const int G = gridDim.x;
   const int tid = threadIdx.x;
   const long long PP = (long long)P * P;

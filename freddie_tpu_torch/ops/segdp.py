@@ -382,17 +382,10 @@ def dispatch_batch_device(
     default never: then it is the current card); "cuda:N" and "cpu" name
     one device. ``devices``, a list of devices, overrides both: the batch is
     split over exactly those, whatever its size (one device may be listed
-    several times).
-
-    A batch for a CUDA device whose padded P is wider than K1 holds
-    (``segdp_cuda.K1_MAX_P``) is solved here with ``solve_host``, problem
-    by problem, and returned as (None, [], results), like the
-    int32-overflow batch below: the JAX dispatch's XLA route and this
-    package's CPU route solve such a batch, so the CUDA route must too.
-    ``segdp_cuda.WIDE_HOST_BATCHES`` and ``WIDE_HOST_PROBLEMS`` count them;
-    the pipeline writes their growth into the segment stage's metrics."""
+    several times). Every padded P is launched: above what a block's
+    shared memory holds, the kernel keeps its wavefront's H in device
+    memory (``ops.segdp_cuda``)."""
     from ..parallel import mesh
-    from . import segdp_cuda
 
     if not problems:
         return None, [], []
@@ -417,17 +410,10 @@ def dispatch_batch_device(
     while B_pad < B:
         B_pad <<= 1
     B_pad = max(B_pad, pad_b_to)
-    if devices is not None:
-        devices = [torch.device(d) for d in devices]
-    on_card = (devices[0] if devices else torch.device(device)).type == "cuda"
-    if on_card and P > segdp_cuda.K1_MAX_P:
-        for i in work:
-            results[i] = solve_host(problems[i], thr)
-        segdp_cuda.WIDE_HOST_BATCHES += 1
-        segdp_cuda.WIDE_HOST_PROBLEMS += len(work)
-        return None, [], results
     if devices is None:
         devices = mesh.devices_for(device, B_pad * P**3 * R)
+    else:
+        devices = [torch.device(d) for d in devices]
     y = np.zeros((B_pad, P), dtype=np.int32)
     W = np.zeros((B_pad, R), dtype=np.float32)
     n_cand = np.zeros((B_pad,), dtype=np.int32)

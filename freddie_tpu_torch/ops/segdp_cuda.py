@@ -15,8 +15,9 @@ bounds each on the H100 in ``csrc/segdp_kernels.cuh``):
   outside tensor in global memory because it cannot fit one SM's shared
   memory as it fit the TPU's VMEM; then phases 2-3, the backward
   wavefront (P strictly dependent steps), on one block per problem with
-  H in shared memory, which ends by walking each problem's breakpoint
-  chain (``with_chains``), so the dispatch launches nothing after it.
+  H in shared memory up to ``K1_SMEM_MAX_P`` and in device memory above
+  it, which ends by walking each problem's breakpoint chain
+  (``with_chains``), so the dispatch launches nothing after it.
 - K2 (``pipelined=True``; replaces ``segdp_pallas.py:_kernel_pipelined``):
   one persistent, warp-specialised launch of as many blocks as the card
   holds at once (two of 12 warps per SM at P <= 64, one above). In each
@@ -28,8 +29,14 @@ bounds each on the H100 in ``csrc/segdp_kernels.cuh``):
   and "free" named barriers, never a block-wide one, and the blocks draw
   their problems from a counter on the card. Bound like K1's
   phase 1, by instruction issue in the indicator build. A block's shared
-  memory holds the phase-1 slots beside H, so K2 takes P <= ``K2_MAX_P``
-  and raises above it.
+  memory holds the phase-1 slots beside H up to ``K2_SMEM_MAX_P``; above
+  it each block's H is a plane of its own in device memory.
+
+Both kernels take every P whose scratch fits the card. The scratch --
+the (P, P, P) outside tensor, inside and, above the shared-memory cap, H
+-- is held for a group of problems (K1) or blocks (K2) at once, as many
+as ``SCRATCH_BUDGET`` allows and at least one (``group_size``); K1
+solves a batch group by group on one set of scratch buffers.
 
 Both kernels return the chains themselves (``with_chains``); on the card
 nothing is launched after them.
@@ -51,55 +58,83 @@ from ._build import load_library
 from .segdp import _solve_batch_torch, _walk_chains, threshold_products
 
 # Kernel launches made through solve_batch_cuda, one per solved batch:
-# K1's (both of its launches count once) and K2's.
+# K1's (its two launches, over every group of the batch, count once) and
+# K2's; and of those, the ones whose wavefront held H in device memory.
 LAUNCHES = 0
 PIPELINED_LAUNCHES = 0
+DEVICE_H_LAUNCHES = 0
+PIPELINED_DEVICE_H_LAUNCHES = 0
 # The (B, P, R) of K1's latest launches as the caller gave them, oldest
 # first: what a benchmark reads to name the shapes a stage launched.
 LAUNCH_SHAPES: collections.deque = collections.deque(maxlen=256)
-# Batches that ``ops.segdp.dispatch_batch_device`` solved on the host
-# because their padded P is wider than K1 holds (``K1_MAX_P``), and the
-# problems in them.
-WIDE_HOST_BATCHES = 0
-WIDE_HOST_PROBLEMS = 0
 
 # Shared memory a Hopper block may use (dynamic, after opting in).
 _BLOCK_SMEM = 232_448
 _MAX_SMEM = _BLOCK_SMEM - 256  # less the wavefront's static reduction scratch
 
-# What the runtime reports for K2, by (device index, P): SMs, blocks an SM
-# holds at once, registers per thread, shared memory per block.
-_PIPE_BLOCKS: dict[tuple[int, int], tuple[int, int, int, int]] = {}
+# What the runtime reports for K2, by (device index, P, H in shared
+# memory): SMs, blocks an SM holds at once, registers per thread, shared
+# memory per block.
+_PIPE_BLOCKS: dict[tuple[int, int, bool], tuple[int, int, int, int]] = {}
 
-# The widest problem K1 takes (240): the wavefront's H (4 P^2 B) and ys
-# (4 P B) fit _MAX_SMEM up to here, 4 P^2 + 4 P = (2 P + 1)^2 - 1. The
-# dispatch's P buckets are multiples of 32, so 224 is the widest it
-# launches; it solves wider batches on the host.
-K1_MAX_P = (math.isqrt(_MAX_SMEM + 1) - 1) // 2
+# The widest problem whose wavefront keeps H in K1's shared memory (240):
+# H (4 P^2 B) and ys (4 P B) fit _MAX_SMEM up to here, 4 P^2 + 4 P =
+# (2 P + 1)^2 - 1. Above it (the dispatch's P = 256 bucket and wider) H is
+# in device memory.
+K1_SMEM_MAX_P = (math.isqrt(_MAX_SMEM + 1) - 1) // 2
 
-# The widest problem K2 takes: above it one block's phase-1 slots
-# (PairSmem<128>, 107,520 B), H (4 P^2 B) and ys do not fit _BLOCK_SMEM.
-# The dispatch's P buckets are multiples of 32, so 160 is the widest in use.
-K2_MAX_P = 176
+# The same for K2 (176), whose block holds the phase-1 slots beside H:
+# PairSmem<128> (sizeof in the .cuh), H, ys and 16 B of hand-off state.
+_PAIR_SMEM_WIDE = 2 * 128 * 32 * 8 + 2 * 128 * 160 + 128 * 8
+K2_SMEM_MAX_P = (math.isqrt(_MAX_SMEM - _PAIR_SMEM_WIDE - 16 + 1) - 1) // 2
+
+# Device memory the kernels' scratch may hold at once (the budget of
+# ops.segdp.suggested_batch_size); read at call time.
+SCRATCH_BUDGET = 4 << 30
+
+
+def scratch_bytes(P: int, pipelined: bool = False, smem_max_p: int | None = None) -> int:
+    """Scratch of one K1 problem or one K2 block at width P: the outside
+    tensor (P^3 f32; K2 has two slots), inside (P^2; two) and, when P is
+    above the shared-memory cap, H (P^2)."""
+    cap = _cap(pipelined, smem_max_p)
+    slots = 2 if pipelined else 1
+    return 4 * (slots * (P**3 + P**2) + (P * P if P > cap else 0))
+
+
+def group_size(n: int, P: int, pipelined: bool = False, smem_max_p: int | None = None,
+               budget: int | None = None) -> int:
+    """How many of ``n`` K1 problems (or K2 blocks) keep their scratch at
+    once: the most whose ``scratch_bytes`` fit ``budget`` (default
+    ``SCRATCH_BUDGET``), never fewer than one."""
+    budget = SCRATCH_BUDGET if budget is None else budget
+    return max(1, min(n, budget // scratch_bytes(P, pipelined, smem_max_p)))
+
+
+def _cap(pipelined: bool, smem_max_p: int | None) -> int:
+    """The widest P whose H stays in shared memory: the kernel's own limit,
+    or a lower cap the caller gives (0 puts H in device memory at any P)."""
+    top = K2_SMEM_MAX_P if pipelined else K1_SMEM_MAX_P
+    if smem_max_p is None:
+        return top
+    if not 0 <= smem_max_p <= top:
+        raise ValueError(f"smem_max_p={smem_max_p}: H fits shared memory up to P={top}")
+    return smem_max_p
 
 
 def _lib() -> ctypes.CDLL:
     """The built library with its C signatures declared (pointers and the
     stream as void*, so ctypes never truncates them to 32 bits)."""
     lib = load_library("segdp").lib
-    lib.segdp_solve.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 4 + [
+    lib.segdp_solve.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 5 + [
         ctypes.c_void_p
     ]
     lib.segdp_solve.restype = ctypes.c_int
-    lib.segdp_wavefront_smem.argtypes = [ctypes.c_int]
-    lib.segdp_wavefront_smem.restype = ctypes.c_size_t
-    lib.segdp_solve_pipelined.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 5 + [
+    lib.segdp_solve_pipelined.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p
     ]
     lib.segdp_solve_pipelined.restype = ctypes.c_int
-    lib.segdp_pipelined_smem.argtypes = [ctypes.c_int]
-    lib.segdp_pipelined_smem.restype = ctypes.c_size_t
-    lib.segdp_pipelined_occupancy.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    lib.segdp_pipelined_occupancy.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.segdp_pipelined_occupancy.restype = ctypes.c_int
     lib.segdp_error_string.argtypes = [ctypes.c_int]
     lib.segdp_error_string.restype = ctypes.c_char_p
@@ -122,51 +157,51 @@ def _raise_on(lib, err: int, what: str) -> None:
         raise RuntimeError(f"{what} failed: {lib.segdp_error_string(err).decode()}")
 
 
-def pipelined_occupancy(P: int) -> dict[str, int]:
-    """What the runtime reports for K2 at width P on the current device:
-    ``sms``, ``blocks_per_sm`` (resident at once), ``registers`` per thread
-    and ``smem_bytes`` per block (static + dynamic). Queried once per
-    (device, P); ``solve_batch_cuda`` asks under ``torch.cuda.device`` of
-    its tensors, so on any card the key and the query (through the context
-    torch made current) name that card. Raises ValueError for P above
-    ``K2_MAX_P``: such a block's shared memory does not fit, and nothing
-    falls back."""
-    key = (torch.cuda.current_device(), P)
+def pipelined_occupancy(P: int, smem_max_p: int | None = None) -> dict[str, int]:
+    """What the runtime reports for K2 at width P on the current device,
+    with H in shared memory up to the cap (``K2_SMEM_MAX_P`` by default):
+    ``sms``, ``blocks_per_sm`` (resident at once), ``registers`` per
+    thread and ``smem_bytes`` per block (static + dynamic). Queried once
+    per (device, P, home of H); ``solve_batch_cuda`` asks under
+    ``torch.cuda.device`` of its tensors, so on any card the key and the
+    query (through the context torch made current) name that card."""
+    cap = _cap(True, smem_max_p)
+    key = (torch.cuda.current_device(), P, P <= cap)
     if key not in _PIPE_BLOCKS:
         lib = _lib()
-        smem = lib.segdp_pipelined_smem(P)
-        if P > K2_MAX_P or not 0 < smem <= _BLOCK_SMEM:
-            raise ValueError(f"P={P}: a K2 block needs {smem} B of shared memory (the "
-                             f"pair statistics' slots, H and ys; the card gives at most "
-                             f"{_BLOCK_SMEM} B): K2 takes P <= {K2_MAX_P}")
         out = (ctypes.c_int * 4)()
-        _raise_on(lib, lib.segdp_pipelined_occupancy(P, ctypes.addressof(out)),
+        _raise_on(lib, lib.segdp_pipelined_occupancy(P, cap, ctypes.addressof(out)),
                   "K2 occupancy query")
         _PIPE_BLOCKS[key] = tuple(out)
     return dict(zip(("sms", "blocks_per_sm", "registers", "smem_bytes"), _PIPE_BLOCKS[key]))
 
 
-def pipelined_grid(B: int, P: int) -> int:
+def pipelined_grid(B: int, P: int, smem_max_p: int | None = None) -> int:
     """K2's number of blocks for B problems at width P on the current
-    device: as many as the card holds at once, at most B. Raises ValueError
-    for P above ``K2_MAX_P``."""
-    occ = pipelined_occupancy(P)
-    return min(B, occ["sms"] * occ["blocks_per_sm"])
+    device: as many as the card holds at once and as ``SCRATCH_BUDGET``
+    gives scratch for, at most B, at least 1."""
+    occ = pipelined_occupancy(P, smem_max_p)
+    return group_size(min(B, occ["sms"] * occ["blocks_per_sm"]), P, True, smem_max_p)
 
 
-def _pipelined_scratch(B: int, P: int, dev):
-    """K2's grid G and its per-block scratch slots OT (G, 2, P, P, P) and
-    INS (G, 2, P, P); raises ValueError when the card cannot hold them."""
-    G = pipelined_grid(B, P)
-    try:
-        OT = torch.empty((G, 2, P, P, P), dtype=torch.float32, device=dev)
-        INS = torch.empty((G, 2, P, P), dtype=torch.float32, device=dev)
-    except torch.cuda.OutOfMemoryError as e:
-        need = G * 2 * (P**3 + P**2) * 4
-        raise ValueError(f"K2 scratch for G={G} blocks at P={P} needs "
-                         f"{need / 2**20:.0f} MiB of device memory; the card "
-                         "does not have it free") from e
-    return G, OT, INS
+def _scratch(n: int, P: int, pipelined: bool, cap: int, dev):
+    """Scratch for ``n`` K1 problems or K2 blocks: OT, INS and (above the
+    cap) H, f32 (K2: two OT and INS slots per block). Where the card
+    cannot hold n units, n halves; raises ValueError naming the bytes when
+    it cannot hold one. Returns n and the three tensors (H None)."""
+    slots = (2,) if pipelined else ()
+    shapes = [slots + (P, P, P), slots + (P, P), (P, P) if P > cap else None]
+    while True:
+        try:
+            return n, [None if s is None else
+                       torch.empty((n,) + s, dtype=torch.float32, device=dev) for s in shapes]
+        except torch.cuda.OutOfMemoryError as e:
+            if n == 1:
+                need = scratch_bytes(P, pipelined, cap)
+                raise ValueError(f"P={P}: one {'K2 block' if pipelined else 'problem'}'s "
+                                 f"scratch needs {need} B ({need / 2**20:.0f} MiB) of "
+                                 "device memory; the card does not have it free") from e
+            n = (n + 1) // 2
 
 
 # Reps per shared-memory stage of phase 1 (kMmaStage in the .cuh):
@@ -194,7 +229,7 @@ def kernel_inputs(C, y, W, lookup, scale):
 
 
 def solve_batch_cuda(C, y, W, n_cand, read_support, lookup, scale, pipelined=False,
-                     with_chains=False):
+                     with_chains=False, smem_max_p=None):
     """Same contract as ``ops.segdp._solve_batch_torch`` and
     ``freddie_tpu``'s ``solve_batch_pallas``: C (B, P, R) int32, y (B, P)
     int32, W (B, R) f32 integer-valued, n_cand (B,) int32, lookup (L+1,)
@@ -203,10 +238,13 @@ def solve_batch_cuda(C, y, W, n_cand, read_support, lookup, scale, pipelined=Fal
     (K1 splits wide weights into limbs itself), so they take no
     ``wide_weights`` flag. ``with_chains`` appends the (B, P+2)
     -1-terminated breakpoint chains to the result: both kernels walk them
-    themselves; the CPU route takes ``_walk_chains``. Raises ValueError for
-    P above ``K1_MAX_P`` (K2: ``K2_MAX_P``); the dispatch routes such
-    batches to the host before it calls this."""
-    global LAUNCHES, PIPELINED_LAUNCHES
+    themselves; the CPU route takes ``_walk_chains``. Every P is taken:
+    the wavefront keeps H in shared memory up to ``smem_max_p`` (default:
+    the widest that fits, ``K1_SMEM_MAX_P`` / ``K2_SMEM_MAX_P``; a lower
+    cap, 0 included, puts H in device memory, which is how the tests reach
+    that route at small P) and in device memory above. Raises ValueError
+    only when one problem's scratch cannot be allocated."""
+    global LAUNCHES, PIPELINED_LAUNCHES, DEVICE_H_LAUNCHES, PIPELINED_DEVICE_H_LAUNCHES
     if C.device.type == "cpu":
         res = _solve_batch_torch(C, y, W, n_cand, read_support, lookup, scale)
         return res + (_walk_chains(*res),) if with_chains else res
@@ -223,10 +261,8 @@ def solve_batch_cuda(C, y, W, n_cand, read_support, lookup, scale, pipelined=Fal
         raise ValueError(f"batch of {B} problems: the kernels take 1..65535")
     if not 0 <= int(read_support) < 2**31:
         raise ValueError(f"read_support {read_support} out of int32 range")
+    cap = _cap(pipelined, smem_max_p)
     lib = _lib()
-    if P > K1_MAX_P:
-        raise ValueError(f"P={P}: H does not fit one block's shared memory "
-                         f"(the kernels take P <= {K1_MAX_P})")
 
     Cs, T_hi, T_lo, Wi, w_sum, w_max = kernel_inputs(C, y, W, lookup, scale)
     R = Wi.shape[1]  # padded
@@ -234,31 +270,45 @@ def solve_batch_cuda(C, y, W, n_cand, read_support, lookup, scale, pipelined=Fal
     best_j = torch.empty((B,), dtype=torch.int32, device=dev)
     best_k = torch.empty((B,), dtype=torch.int32, device=dev)
     chains = torch.empty((B, P + 2), dtype=torch.int32, device=dev)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if pipelined:
-            G, OT, INS = _pipelined_scratch(B, P, dev)
+            G, (OT, INS, H) = _scratch(pipelined_grid(B, P, cap), P, True, cap, dev)
             queue = torch.zeros(1, dtype=torch.int32, device=dev)  # the blocks' work counter
             err = lib.segdp_solve_pipelined(
                 Cs.data_ptr(), T_hi.data_ptr(), T_lo.data_ptr(), Wi.data_ptr(),
                 w_sum.data_ptr(), w_max.data_ptr(), y.data_ptr(), n_cand.data_ptr(),
-                OT.data_ptr(), INS.data_ptr(), K.data_ptr(), best_j.data_ptr(),
+                OT.data_ptr(), INS.data_ptr(), ptr(H), K.data_ptr(), best_j.data_ptr(),
                 best_k.data_ptr(), chains.data_ptr(), queue.data_ptr(),
-                B, P, R, int(read_support), G, stream,
+                B, P, R, int(read_support), G, cap, stream,
             )
         else:
-            OT = torch.empty((B, P, P, P), dtype=torch.float32, device=dev)
-            INS = torch.empty((B, P, P), dtype=torch.float32, device=dev)
-            err = lib.segdp_solve(
-                Cs.data_ptr(), T_hi.data_ptr(), T_lo.data_ptr(), Wi.data_ptr(),
-                w_sum.data_ptr(), w_max.data_ptr(), y.data_ptr(), n_cand.data_ptr(),
-                OT.data_ptr(), INS.data_ptr(), K.data_ptr(), best_j.data_ptr(),
-                best_k.data_ptr(), chains.data_ptr(), B, P, R, int(read_support), stream,
-            )
+            # Group by group on one set of scratch buffers; the stream
+            # orders a group's launches after the previous group's.
+            g, (OT, INS, H) = _scratch(group_size(B, P, False, cap), P, False, cap, dev)
+            err = 0
+            for b0 in range(0, B, g):
+                part = slice(b0, min(B, b0 + g))
+                err = lib.segdp_solve(
+                    Cs[part].data_ptr(), T_hi[part].data_ptr(), T_lo[part].data_ptr(),
+                    Wi[part].data_ptr(), w_sum[part].data_ptr(), w_max[part].data_ptr(),
+                    y[part].data_ptr(), n_cand[part].data_ptr(), OT.data_ptr(),
+                    INS.data_ptr(), ptr(H), K[part].data_ptr(), best_j[part].data_ptr(),
+                    best_k[part].data_ptr(), chains[part].data_ptr(),
+                    part.stop - b0, P, R, int(read_support), cap, stream,
+                )
+                if err:
+                    break
     _raise_on(lib, err, f"segdp{'_pipelined' if pipelined else ''} kernel launch")
     if pipelined:
         PIPELINED_LAUNCHES += 1
+        PIPELINED_DEVICE_H_LAUNCHES += P > cap
     else:
         LAUNCHES += 1
+        DEVICE_H_LAUNCHES += P > cap
         LAUNCH_SHAPES.append((B, P, C.shape[2]))
     return (K, best_j, best_k, chains) if with_chains else (K, best_j, best_k)

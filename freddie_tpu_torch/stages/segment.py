@@ -25,7 +25,6 @@ route writes the same bytes.
 from __future__ import annotations
 
 import os
-import sys
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -33,7 +32,6 @@ import numpy as np
 from ..config import SegmentConfig
 from ..device import resolve_device
 from ..io.tsv import SplitTint, format_segment_tsv, load_read_sequences, parse_split_tsv
-from ..ops import segdp_cuda
 from ..ops import signal as sig
 from ..ops.coverage import cumulative_coverage
 from ..ops.polya import _load_ctok, annotate_gaps_and_polya
@@ -507,7 +505,6 @@ def run_segment(split_dir: str, outdir: str, cfg: SegmentConfig | None = None,
     (by default never)."""
     cfg = cfg or SegmentConfig()
     dev = resolve_device(device) if cfg.use_device else None
-    wide_before = segdp_cuda.WIDE_HOST_PROBLEMS
     os.makedirs(outdir, exist_ok=True)
     thr = ScaledThresholds(cfg.threshold_rate)
     jobs: list[tuple[str, int, str, str]] = []
@@ -750,9 +747,4 @@ def run_segment(split_dir: str, outdir: str, cfg: SegmentConfig | None = None,
     finally:
         if readback is not None:
             readback.shutdown(wait=True)
-    wide = segdp_cuda.WIDE_HOST_PROBLEMS - wide_before
-    if wide:
-        print(f"[segment] {wide} DP problems lie in buckets wider than the card's kernel "
-              f"holds (P > {segdp_cuda.K1_MAX_P}) and were solved on the host",
-              file=sys.stderr, flush=True)
     return len(jobs)

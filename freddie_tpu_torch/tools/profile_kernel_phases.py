@@ -6,11 +6,13 @@ At the shape given (default: the kernel benchmark's 2048,64,512), from
 ``torch.profiler`` and CUDA events:
 
 - K1 by phase: its pair-statistics launch, its wavefront launch (which
-  also walks the chains), and what is left of the whole
-  ``solve_batch_cuda`` call, the wrapper's torch prologue;
-- K2: its one launch's device time beside the whole call, what the
-  runtime reports for it (blocks per SM, registers, shared memory, grid),
-  and its tail: the whole call at B = G, 2G, 8G and B problems (G its
+  also walks the chains; with H in device memory above P = 240), and
+  what is left of the whole ``solve_batch_cuda`` call, the wrapper's
+  torch prologue;
+- K2 (at every P: above K2_SMEM_MAX_P its H is in device memory): its
+  one launch's device time beside the whole call, what the runtime
+  reports for it (blocks per SM, registers, shared memory, grid), and
+  its tail: the whole call at B = G, 2G, 8G and B problems (G its
   grid) beside K1 and a step model.
 
 The kernels run only on a card: ``--device cpu`` is refused.
@@ -30,7 +32,8 @@ from ..device import resolve_device
 from ..ops import segdp_cuda
 from ..ops.segdp import ScaledThresholds, to_device
 
-KERNELS = ("pair_stats_kernel", "wavefront_kernel", "segdp_pipelined_kernel")
+KERNELS = ("pair_stats_kernel", "wavefront_kernel", "wavefront_gmem_kernel",
+           "segdp_pipelined_kernel")
 
 
 def _device_us(evt) -> float:
@@ -100,7 +103,9 @@ def profile_shape(dev, shape, log=print) -> dict:
     args = batch_args(dev, shape)
     k1_call = time_ms(lambda: segdp_cuda.solve_batch_cuda(*args))
     k1 = device_ms_by_kernel([lambda: segdp_cuda.solve_batch_cuda(*args)])
-    pair, wave = k1.get("pair_stats_kernel"), k1.get("wavefront_kernel")
+    # The wavefront launch is wavefront_gmem_kernel where H is in device memory.
+    pair = k1.get("pair_stats_kernel")
+    wave = k1.get("wavefront_kernel", k1.get("wavefront_gmem_kernel"))
     out = dict(shape=list(shape), card=card, k1_call_ms=k1_call, k1_pair_stats_ms=pair,
                k1_wavefront_ms=wave,
                k1_prologue_ms=None if pair is None or wave is None else k1_call - pair - wave)
@@ -108,23 +113,20 @@ def profile_shape(dev, shape, log=print) -> dict:
         f"pair_stats {pair} ms + wavefront with the chain walk {wave} ms on the device "
         f"(profiler, mean of 3; None: not measured); the wrapper's prologue is the rest, "
         f"{out['k1_prologue_ms']} ms; on {card}")
-    if P <= segdp_cuda.K2_MAX_P:
-        k2_call = time_ms(lambda: segdp_cuda.solve_batch_cuda(*args, pipelined=True))
-        k2 = device_ms_by_kernel([lambda: segdp_cuda.solve_batch_cuda(*args, pipelined=True)])
-        out.update(k2_call_ms=k2_call, k2_launch_ms=k2.get("segdp_pipelined_kernel"),
-                   k2_occupancy=segdp_cuda.pipelined_occupancy(P),
-                   k2_grid=segdp_cuda.pipelined_grid(B, P))
-        log(f"[phases] K2 at B,P,R={shape}: whole call {k2_call:.3f} ms, its launch "
-            f"{out['k2_launch_ms']} ms on the device; the runtime reports "
-            f"{json.dumps(out['k2_occupancy'])}, grid {out['k2_grid']}; on {card}")
-        out["k2_tail"] = tail = k2_tail(dev, P, R, B, args[5], args[6])
-        for r in tail["rows"]:
-            log(f"[phases] K2 tail, B={r['B']} (G={tail['G']}, {r['steps']} steps) P={P} R={R}: "
-                f"{r['k2_ms']:.3f} ms, step model {r['model_ms']:.3f} ms (step "
-                f"{tail['step_ms']:.3f} ms); K1 {r['k1_ms']:.3f} ms (medians of {TIMED_REPS}), "
-                f"on {card}")
-    else:
-        log(f"[phases] K2 takes P <= {segdp_cuda.K2_MAX_P}: not profiled at P={P}")
+    k2_call = time_ms(lambda: segdp_cuda.solve_batch_cuda(*args, pipelined=True))
+    k2 = device_ms_by_kernel([lambda: segdp_cuda.solve_batch_cuda(*args, pipelined=True)])
+    out.update(k2_call_ms=k2_call, k2_launch_ms=k2.get("segdp_pipelined_kernel"),
+               k2_occupancy=segdp_cuda.pipelined_occupancy(P),
+               k2_grid=segdp_cuda.pipelined_grid(B, P))
+    log(f"[phases] K2 at B,P,R={shape}: whole call {k2_call:.3f} ms, its launch "
+        f"{out['k2_launch_ms']} ms on the device; the runtime reports "
+        f"{json.dumps(out['k2_occupancy'])}, grid {out['k2_grid']}; on {card}")
+    out["k2_tail"] = tail = k2_tail(dev, P, R, B, args[5], args[6])
+    for r in tail["rows"]:
+        log(f"[phases] K2 tail, B={r['B']} (G={tail['G']}, {r['steps']} steps) P={P} R={R}: "
+            f"{r['k2_ms']:.3f} ms, step model {r['model_ms']:.3f} ms (step "
+            f"{tail['step_ms']:.3f} ms); K1 {r['k1_ms']:.3f} ms (medians of {TIMED_REPS}), "
+            f"on {card}")
     return out
 
 

@@ -2,9 +2,12 @@
 // read from raw int32 files in the working directory, and writes K,
 // best_j and best_k back (tests/test_torch_segdp_emulated.py): K1's two
 // launches, or with a grid size G, K2's one launch of G blocks, of which
-// `at_once` run concurrently (default 1: in turn).
+// `at_once` run concurrently (default 1: in turn). As in segdp.cu, the
+// wavefront keeps H in shared memory when P <= cap and in device memory
+// (a scratch vector here: K1's (B, P, P), K2's (G, P, P)) above; a cap of
+// 0 forces the device-memory route.
 //
-//   segdp_emu B P R read_support [G [at_once]]
+//   segdp_emu B P R read_support cap [G [at_once]]
 //   in:  Cs.bin Thi.bin Tlo.bin W.bin wsum.bin wmax.bin y.bin n.bin
 //   out: K.bin bj.bin bk.bin chains.bin; K1's OT.bin and INS.bin (its
 //        scratch, of which only the live entries are defined); K2's
@@ -37,11 +40,12 @@ static void store(const char* name, const std::vector<T>& v) {
 }
 
 int main(int argc, char** argv) {
-  if (argc < 5 || argc > 7) return 2;
+  if (argc < 6 || argc > 8) return 2;
   const int B = std::atoi(argv[1]), P = std::atoi(argv[2]);
   const int R = std::atoi(argv[3]), rs = std::atoi(argv[4]);
-  const int G = argc >= 6 ? std::atoi(argv[5]) : 0;  // 0: K1
-  const int at_once = argc == 7 ? std::atoi(argv[6]) : 1;
+  const bool smem_h = P <= std::atoi(argv[5]);
+  const int G = argc >= 7 ? std::atoi(argv[6]) : 0;  // 0: K1
+  const int at_once = argc == 8 ? std::atoi(argv[7]) : 1;
   if (G < 0 || G > B || at_once < 1 || at_once > (G ? G : 1)) return 2;
   if (R % segdp::kMmaStage != 0) return 2;  // the wrapper pads the reps
   const size_t BP = (size_t)B * P, BPP = BP * P;
@@ -67,27 +71,35 @@ int main(int argc, char** argv) {
                                                    W.data(), wsum.data(), wmax.data(),
                                                    n.data(), OT.data(), INS.data(), P, R, rs);
     });
+    std::vector<float> H(smem_h ? 0 : BPP, 12345.f);
     emu_launch(dim3(B), segdp::kThreads, [&] {
-      segdp::wavefront_kernel(OT.data(), INS.data(), y.data(), n.data(),
-                              K.data(), bj.data(), bk.data(), chains.data(), P);
+      if (smem_h)
+        segdp::wavefront_kernel(OT.data(), INS.data(), y.data(), n.data(),
+                                K.data(), bj.data(), bk.data(), chains.data(), P);
+      else
+        segdp::wavefront_gmem_kernel(OT.data(), INS.data(), y.data(), n.data(), H.data(),
+                                     K.data(), bj.data(), bk.data(), chains.data(), P);
     });
     store("OT.bin", OT);
     store("INS.bin", INS);
   } else {
     const size_t slots = 2 * (size_t)G * P * P;
     std::vector<float> OT(slots * P, 12345.f), INS(slots, 12345.f);
+    std::vector<float> H(smem_h ? 0 : (size_t)G * P * P, 12345.f);
     int queue = 0;  // the blocks' work counter
+    // The instantiation segdp.cu's pipe_kernel picks.
+    auto run = [&](auto kernel) {
+      kernel(Cs.data(), Thi.data(), Tlo.data(), W.data(), wsum.data(), wmax.data(), y.data(),
+             n.data(), OT.data(), INS.data(), H.data(), K.data(), bj.data(), bk.data(),
+             chains.data(), &queue, B, P, R, rs);
+    };
     emu_launch(dim3(G), segdp::kPipeThreads, [&] {
       if (P <= segdp::kTile)
-        segdp::segdp_pipelined_kernel<segdp::kTile>(
-            Cs.data(), Thi.data(), Tlo.data(), W.data(), wsum.data(), wmax.data(), y.data(),
-            n.data(), OT.data(), INS.data(), K.data(), bj.data(), bk.data(), chains.data(),
-            &queue, B, P, R, rs);
+        smem_h ? run(segdp::segdp_pipelined_kernel<segdp::kTile, true>)
+               : run(segdp::segdp_pipelined_kernel<segdp::kTile, false>);
       else
-        segdp::segdp_pipelined_kernel<2 * segdp::kTile>(
-            Cs.data(), Thi.data(), Tlo.data(), W.data(), wsum.data(), wmax.data(), y.data(),
-            n.data(), OT.data(), INS.data(), K.data(), bj.data(), bk.data(), chains.data(),
-            &queue, B, P, R, rs);
+        smem_h ? run(segdp::segdp_pipelined_kernel<2 * segdp::kTile, true>)
+               : run(segdp::segdp_pipelined_kernel<2 * segdp::kTile, false>);
     }, at_once);
     store("queue.bin", std::vector<int>{queue});
   }

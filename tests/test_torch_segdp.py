@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from freddie_tpu.ops import segdp as jseg
+from freddie_tpu.ops.coverage import cumulative_coverage
 from freddie_tpu.ops.segdp import DPProblem, solve_host
 from freddie_tpu.ops.segdp_pallas import solve_batch_pallas
 from freddie_tpu.ops.thresholds import ScaledThresholds
@@ -204,56 +205,136 @@ def test_cuda_device_without_gpu_raises():
         resolve_device("cuda")
 
 
+def _wide_problems(rng, with_intervals):
+    """Three problems of 225-250 candidates (the P = 256 bucket), each with
+    12 reps; with ``with_intervals`` each carries the interval list its C
+    is built from, so the dispatch may take the device coverage route."""
+    problems = []
+    for _ in range(3):
+        n = int(rng.integers(225, 251))
+        if not with_intervals:
+            problems.append(random_problem(rng, n, 12))
+            continue
+        y = np.sort(rng.choice(np.arange(1, 5000), size=n, replace=False)).astype(np.int64)
+        s = rng.integers(0, 4800, size=60)
+        iv = np.stack([s, s + rng.integers(0, 600, size=60), rng.integers(0, 12, size=60)],
+                      axis=1).astype(np.int32)
+        C = cumulative_coverage(iv[:, 0].astype(np.int64), iv[:, 1].astype(np.int64),
+                                iv[:, 2].astype(np.int64), 12, y, validate=True)[:n]
+        problems.append(DPProblem(C=C, y=y, W=rng.integers(1, 5, size=12).astype(np.int64),
+                                  read_support=2, iv=iv))
+    return problems
+
+
 @pytest.mark.parametrize("with_intervals", [False, True], ids=["dense", "interval_lists"])
-def test_bucket_wider_than_the_kernel_goes_to_the_host(monkeypatch, with_intervals):
-    """A batch for a CUDA device whose padded P is above ``K1_MAX_P`` (patched
-    low; the dispatch's check needs only P and the device's type, so no
-    card is needed) is solved by solve_host before anything is padded or
-    shipped, on the dense and on the interval-list route: the results
-    equal the JAX package's solve_batch_device, nothing is launched and
-    the plain DP is not called. A CPU device has no such limit."""
+def test_wide_bucket_reaches_the_kernel_wrapper(monkeypatch, with_intervals):
+    """A batch of the P = 256 bucket for a card goes where every other
+    batch goes: through the mesh's device choice to solve_batch_cuda with
+    P = 256, on the dense and on the interval-list route, and never to
+    solve_host. The card is simulated, so the test needs no GPU: the mesh
+    names the CPU for "cuda", and the wrapper runs its plain version on
+    the CPU tensors it is handed. The results equal the JAX package's
+    solve_batch_device on the same problems."""
+    from freddie_tpu_torch.parallel import mesh
+
+    rng = np.random.default_rng(256 + with_intervals)
+    thr = ScaledThresholds(0.9)
+    problems = _wide_problems(rng, with_intervals)
+    want = jseg.solve_batch_device(
+        [DPProblem(C=p.C, y=p.y, W=p.W, read_support=p.read_support) for p in problems], thr,
+        pad_p_to=256, pad_r_to=16)
+    cpu = torch.device("cpu")
+    monkeypatch.setattr(mesh, "loci_devices", lambda: [cpu])
+    monkeypatch.setattr(mesh, "resolve_device", lambda _dev: cpu)
+    launched = []
+    real = mesh.solve_batch_cuda
+    monkeypatch.setattr(mesh, "solve_batch_cuda",
+                        lambda C, *a, **k: launched.append(tuple(C.shape)) or real(C, *a, **k))
+    monkeypatch.setattr(tseg, "solve_host", lambda *_a: pytest.fail("solve_host was called"))
+    routes = []
+    build = mesh.build_coverage_device
+    monkeypatch.setattr(mesh, "build_coverage_device",
+                        lambda *a: routes.append("iv") or build(*a))
+    got = tseg.solve_batch_device(problems, thr, pad_p_to=256, pad_r_to=16, device="cuda")
+    assert got == want and any(want)
+    assert launched == [(8, 256, 16)]
+    assert routes == (["iv"] if with_intervals else [])
+
+
+def test_plain_matches_xla_at_p256():
+    """_solve_batch_torch == _solve_batch_jax on one problem of the P = 256
+    bucket (the width above what K1's shared memory holds H for)."""
+    rng = np.random.default_rng(2560)
+    thr = ScaledThresholds(0.9)
+    C, y, W, n_cand = _padded_batch(rng, 1, 256, 64, False)
+    n_cand[:] = 250
+    C[:, 250:] = C[:, 249:250]
+    y[:, 250:] = y[:, 249:250]
+    lookup = jnp.asarray(thr.lookup)
+    Kx, bjx, bkx = jseg._solve_batch_jax(jnp.asarray(C), jnp.asarray(y), jnp.asarray(W),
+                                         jnp.asarray(n_cand), 3, lookup, thr.scale)
+    Kt, bjt, bkt = _torch_solve(C, y, W, n_cand, thr)
+    np.testing.assert_array_equal(np.asarray(bjx), bjt)
+    np.testing.assert_array_equal(np.asarray(bkx), bkt)
+    np.testing.assert_array_equal(np.asarray(Kx), Kt)
+    assert (bjt >= 0).all(), "the problem should segment"
+
+
+@pytest.mark.parametrize("B,P,budget,pipelined,want", [
+    (2048, 64, 4 << 30, False, 2048),  # the kernel benchmark: one group
+    (8, 224, 4 << 30, False, 8),
+    (8, 256, 4 << 30, False, 8),  # 64.5 MiB a problem
+    (8, 512, 4 << 30, False, 7),  # 514 MiB a problem: groups of 7 and 1
+    (8, 512, 1 << 20, False, 1),  # nothing fits: one problem at a time all the same
+    (8, 256, 3 * (4 * (256**3 + 2 * 256**2)), False, 3),  # a budget of three problems
+    (65535, 16, 4 << 30, False, 65535),
+    (264, 256, 4 << 30, True, 31),  # K2's blocks at P = 256: two slots and H each
+    (264, 64, 4 << 30, True, 264),  # the K2 benchmark's grid is untouched
+    (132, 512, 4 << 30, True, 3),
+])
+def test_scratch_group_size(B, P, budget, pipelined, want):
+    """group_size: the most problems (K1) or blocks (K2) whose scratch --
+    the outside tensor, inside and, above the shared-memory cap, H --
+    fits the budget, at least 1 and at most what there is."""
     from freddie_tpu_torch.ops import segdp_cuda
 
-    rng = np.random.default_rng(224)
-    thr = ScaledThresholds(0.9)
-    problems = [random_problem(rng, int(rng.integers(18, 25)), 12) for _ in range(5)]
-    if with_intervals:
-        for pr in problems:
-            pr.iv = np.zeros((4, 3), dtype=np.int32)  # enough to choose the route
-    want = jseg.solve_batch_device(
-        [DPProblem(C=p.C, y=p.y, W=p.W, read_support=p.read_support) for p in problems], thr)
-    monkeypatch.setattr(segdp_cuda, "K1_MAX_P", 16)
-    plain_calls = []
-    monkeypatch.setattr(segdp_cuda, "_solve_batch_torch",
-                        lambda *a, **k: plain_calls.append(1))
-    launches, routed = segdp_cuda.LAUNCHES, segdp_cuda.WIDE_HOST_BATCHES
-    routed_problems = segdp_cuda.WIDE_HOST_PROBLEMS
-    handles, work, results = tseg.dispatch_batch_device(problems, thr, device="cuda")
-    assert handles is None and work == []
-    assert results == want == [solve_host(p, thr) for p in problems]
-    assert segdp_cuda.WIDE_HOST_BATCHES == routed + 1
-    assert segdp_cuda.WIDE_HOST_PROBLEMS == routed_problems + len(problems)
-    assert segdp_cuda.LAUNCHES == launches and not plain_calls
-    # the same rule for an explicit list of cards; a list of CPU devices has no limit
-    res = tseg.dispatch_batch_device(problems, thr, devices=[torch.device("cuda", 0)] * 2)
-    assert res == (None, [], want) and segdp_cuda.WIDE_HOST_BATCHES == routed + 2
-    monkeypatch.undo()
-    monkeypatch.setattr(segdp_cuda, "K1_MAX_P", 16)
-    if not with_intervals:
-        handles, work, _res = tseg.dispatch_batch_device(problems, thr, device="cpu")
-        assert handles is not None and len(work) == len(problems)
-        handles, _work, _res = tseg.dispatch_batch_device(
-            problems, thr, device="cuda", devices=[torch.device("cpu")] * 2)
-        assert handles is not None
-        assert segdp_cuda.WIDE_HOST_BATCHES == routed + 2
+    got = segdp_cuda.group_size(B, P, pipelined, budget=budget)
+    assert got == want
+    unit = segdp_cuda.scratch_bytes(P, pipelined)
+    assert got == 1 or got * unit <= budget
+    assert got == B or (got + 1) * unit > budget
+
+
+def test_scratch_bytes_count_h_only_above_the_cap():
+    """H is scratch in device memory only where it does not fit a block:
+    above K1_SMEM_MAX_P (K2: K2_SMEM_MAX_P), or at any P when the caller
+    forces the cap to 0; a cap above the kernel's own limit is refused."""
+    from freddie_tpu_torch.ops import segdp_cuda
+
+    for pipelined, top in ((False, segdp_cuda.K1_SMEM_MAX_P), (True, segdp_cuda.K2_SMEM_MAX_P)):
+        slots = 2 if pipelined else 1
+        for P in (16, top, top + 1, 512):
+            plain = 4 * slots * (P**3 + P**2)
+            h = 4 * P * P
+            assert segdp_cuda.scratch_bytes(P, pipelined) == plain + (h if P > top else 0)
+            assert segdp_cuda.scratch_bytes(P, pipelined, smem_max_p=0) == plain + h
+        with pytest.raises(ValueError, match="fits shared memory up to"):
+            segdp_cuda.scratch_bytes(64, pipelined, smem_max_p=top + 1)
 
 
 def test_k1_max_p_is_the_widest_that_fits_a_block():
-    """K1_MAX_P is the widest P whose wavefront state, 4 P^2 + 4 P bytes,
-    fits the shared memory the wrapper allows; the P = 256 bucket is past
-    it and the P = 224 bucket within."""
+    """K1_SMEM_MAX_P is the widest P whose wavefront state, 4 P^2 + 4 P
+    bytes, fits the shared memory the wrapper allows: the P = 224 bucket
+    keeps H in shared memory and the P = 256 bucket in device memory.
+    K2_SMEM_MAX_P is the same beside K2's phase-1 slots (PairSmem<128>,
+    107,520 B) and 16 B of hand-off state."""
     from freddie_tpu_torch.ops import segdp_cuda
 
-    P = segdp_cuda.K1_MAX_P
+    P = segdp_cuda.K1_SMEM_MAX_P
     assert 4 * P * P + 4 * P <= segdp_cuda._MAX_SMEM < 4 * (P + 1) ** 2 + 4 * (P + 1)
     assert tseg.bucket_shape(224, 128)[0] == 224 <= P < tseg.bucket_shape(225, 128)[0] == 256
+    P2, pair = segdp_cuda.K2_SMEM_MAX_P, 107_520
+    assert segdp_cuda._PAIR_SMEM_WIDE == pair
+    assert pair + 4 * P2 * P2 + 4 * P2 + 16 <= segdp_cuda._MAX_SMEM
+    assert pair + 4 * (P2 + 1) ** 2 + 4 * (P2 + 1) + 16 > segdp_cuda._MAX_SMEM
+    assert P2 == 176

@@ -191,26 +191,79 @@ def test_k2_live_k_limbs_gate_and_chains(cuda_device, case):
 
 
 @pytest.mark.cuda
-def test_k2_refuses_a_width_past_its_shared_memory(cuda_device):
-    """Above K2_MAX_P a K2 block's shared memory does not fit: the wrapper
-    raises and does not fall back; K1 takes the same batch."""
+@pytest.mark.parametrize("P", [192, 256])
+def test_k2_above_its_shared_memory_keeps_h_in_device_memory(cuda_device, P):
+    """Above K2_SMEM_MAX_P each K2 block's H is a plane of its own in
+    device memory: K2 is bit-equal to K1 and to the plain version, chains
+    included, with more problems than blocks so that blocks draw from the
+    queue while others run."""
     from freddie_tpu_torch.ops import segdp_cuda
 
-    P = 192
-    assert P > segdp_cuda.K2_MAX_P
+    assert P > segdp_cuda.K2_SMEM_MAX_P
     rng = np.random.default_rng(P)
     thr = ScaledThresholds(0.9)
-    C, y, W, n_cand = padded_batch(rng, 2, P, 64, False)
+    B = 3 * segdp_cuda.pipelined_grid(65535, P) + 1
+    C, y, W, n_cand = padded_batch(rng, B, P, 64, False)
     t = tseg.to_device(dict(C=C, y=y, W=W, n_cand=n_cand), cuda_device)
     lookup = torch.from_numpy(thr.lookup).to(cuda_device)
     args = (t["C"], t["y"], t["W"], t["n_cand"], 3, lookup, thr.scale)
-    before = segdp_cuda.PIPELINED_LAUNCHES
-    with pytest.raises(ValueError, match=f"P <= {segdp_cuda.K2_MAX_P}"):
-        segdp_cuda.solve_batch_cuda(*args, pipelined=True)
-    assert segdp_cuda.PIPELINED_LAUNCHES == before
-    K1, bj1, bk1 = segdp_cuda.solve_batch_cuda(*args)
+    before = segdp_cuda.PIPELINED_DEVICE_H_LAUNCHES
+    K2, bj2, bk2, chains2 = segdp_cuda.solve_batch_cuda(*args, pipelined=True,
+                                                        with_chains=True)
+    assert segdp_cuda.PIPELINED_DEVICE_H_LAUNCHES == before + 1
+    K1, bj1, bk1, chains1 = segdp_cuda.solve_batch_cuda(*args, with_chains=True)
     Kt, bjt, bkt = tseg._solve_batch_torch(*args)
-    assert torch.equal(bj1, bjt) and torch.equal(K1[:, : P - 1], Kt[:, : P - 1])
+    torch.cuda.synchronize()
+    for Kr, bjr, bkr in ((K1, bj1, bk1), (Kt, bjt, bkt)):
+        assert torch.equal(bj2, bjr) and torch.equal(bk2, bkr)
+        assert torch.equal(K2[:, : P - 1], Kr[:, : P - 1])
+    assert torch.equal(chains2, chains1)
+    assert torch.equal(chains2, tseg._walk_chains(Kt, bjt, bkt))
+    assert (bjt >= 0).any(), "no problem segmented: the case is vacuous"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    dict(B=8, P=256, R=128), dict(B=2, P=512, R=128),  # above K1_SMEM_MAX_P
+    dict(B=8, P=224, R=128, cap=0), dict(B=8, P=64, R=512, cap=0, wide=True),  # forced
+    dict(B=8, P=256, R=128, groups=3), dict(B=8, P=64, R=512, groups=8),  # forced groups
+], ids=lambda c: "-".join(f"{k}{v}" for k, v in c.items()))
+def test_k1_with_h_in_device_memory_and_in_groups(cuda_device, case, monkeypatch):
+    """K1 with its wavefront's H in device memory -- above K1_SMEM_MAX_P,
+    or at any P with the cap forced to 0 -- and K1 over a batch cut into
+    groups by a scratch budget forced low: bit-equal to the plain version,
+    chains included, and to K1 with H in shared memory where that fits."""
+    from freddie_tpu_torch.ops import segdp_cuda
+
+    B, P, R = case["B"], case["P"], case["R"]
+    rng = np.random.default_rng(B * P + R)
+    thr = ScaledThresholds(0.9)
+    C, y, W, n_cand = padded_batch(rng, B, P, R, case.get("wide", False))
+    n_cand[0] = P
+    t = tseg.to_device(dict(C=C, y=y, W=W, n_cand=n_cand), cuda_device)
+    lookup = torch.from_numpy(thr.lookup).to(cuda_device)
+    args = (t["C"], t["y"], t["W"], t["n_cand"], 3, lookup, thr.scale)
+    cap = case.get("cap")
+    if "groups" in case:
+        per = segdp_cuda.scratch_bytes(P)
+        monkeypatch.setattr(segdp_cuda, "SCRATCH_BUDGET", per * (-(-B // case["groups"])))
+        assert -(-B // segdp_cuda.group_size(B, P)) == case["groups"]
+    before = (segdp_cuda.LAUNCHES, segdp_cuda.DEVICE_H_LAUNCHES)
+    K, bj, bk, chains = segdp_cuda.solve_batch_cuda(*args, with_chains=True, smem_max_p=cap)
+    on_device = P > (segdp_cuda.K1_SMEM_MAX_P if cap is None else cap)
+    assert (segdp_cuda.LAUNCHES, segdp_cuda.DEVICE_H_LAUNCHES) == (
+        before[0] + 1, before[1] + on_device)
+    Kt, bjt, bkt = tseg._solve_batch_torch(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(bj, bjt) and torch.equal(bk, bkt)
+    assert torch.equal(K[:, : P - 1], Kt[:, : P - 1])
+    assert torch.equal(K[:, P - 1, 0], bj) and torch.equal(K[:, P - 1, 1], bk)
+    assert torch.equal(chains, tseg._walk_chains(Kt, bjt, bkt))
+    if P <= segdp_cuda.K1_SMEM_MAX_P:
+        monkeypatch.undo()
+        ref = segdp_cuda.solve_batch_cuda(*args, with_chains=True)
+        assert all(torch.equal(a, b) for a, b in zip((K, bj, bk, chains), ref))
+    assert (bjt >= 0).any(), "no problem segmented: the case is vacuous"
 
 
 @pytest.mark.cuda
@@ -279,35 +332,32 @@ def test_mesh_on_one_card_matches_k1_and_host(cuda_device, n_shards, monkeypatch
 
 
 @pytest.mark.cuda
-def test_widest_bucket_launches_and_a_wider_one_goes_to_the_host(cuda_device):
-    """P = 224, the widest bucket K1 holds, is launched and bit-equal to the
-    plain version, chains included; problems of the P = 256 bucket sent
-    through the dispatch are solved by the host oracle without a launch;
-    the wrapper itself still raises at P = 256."""
+def test_wide_buckets_launch_on_the_card(cuda_device):
+    """P = 224, the widest bucket whose H fits shared memory, and P = 256,
+    the first past it, are both launched and bit-equal to the plain
+    version, chains included; problems of the P = 256 bucket sent through
+    the dispatch are solved by K1 on the card (launches > 0), equal to the
+    host oracle."""
     from freddie_tpu_torch.ops import segdp_cuda
 
     rng = np.random.default_rng(224)
     thr = ScaledThresholds(0.9)
     lookup = torch.from_numpy(thr.lookup).to(cuda_device)
-    C, y, W, n_cand = padded_batch(rng, 4, 224, 64, False)
-    n_cand[0] = 224
-    t = tseg.to_device(dict(C=C, y=y, W=W, n_cand=n_cand), cuda_device)
-    args = (t["C"], t["y"], t["W"], t["n_cand"], 3, lookup, thr.scale)
-    K, bj, bk, chains = segdp_cuda.solve_batch_cuda(*args, with_chains=True)
-    Kt, bjt, bkt = tseg._solve_batch_torch(*args)
-    torch.cuda.synchronize()
-    assert torch.equal(bj, bjt) and torch.equal(bk, bkt)
-    assert torch.equal(K[:, :223], Kt[:, :223])
-    assert torch.equal(chains, tseg._walk_chains(Kt, bjt, bkt))
+    for P in (224, 256):
+        C, y, W, n_cand = padded_batch(rng, 4, P, 64, False)
+        n_cand[0] = P
+        t = tseg.to_device(dict(C=C, y=y, W=W, n_cand=n_cand), cuda_device)
+        args = (t["C"], t["y"], t["W"], t["n_cand"], 3, lookup, thr.scale)
+        K, bj, bk, chains = segdp_cuda.solve_batch_cuda(*args, with_chains=True)
+        Kt, bjt, bkt = tseg._solve_batch_torch(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(bj, bjt) and torch.equal(bk, bkt)
+        assert torch.equal(K[:, : P - 1], Kt[:, : P - 1])
+        assert torch.equal(chains, tseg._walk_chains(Kt, bjt, bkt))
 
     problems = [random_problem(rng, int(rng.integers(225, 250)), 16) for _ in range(3)]
-    launches, routed = segdp_cuda.LAUNCHES, segdp_cuda.WIDE_HOST_BATCHES
+    launches = (segdp_cuda.LAUNCHES, segdp_cuda.DEVICE_H_LAUNCHES)
     got = tseg.solve_batch_device(problems, thr, pad_p_to=256, device=cuda_device)
     assert got == [solve_host(p, thr) for p in problems]
-    assert segdp_cuda.LAUNCHES == launches
-    assert segdp_cuda.WIDE_HOST_BATCHES == routed + 1
-
-    C, y, W, n_cand = padded_batch(rng, 1, 256, 64, False)
-    t = tseg.to_device(dict(C=C, y=y, W=W, n_cand=n_cand), cuda_device)
-    with pytest.raises(ValueError, match="shared memory"):
-        segdp_cuda.solve_batch_cuda(t["C"], t["y"], t["W"], t["n_cand"], 3, lookup, thr.scale)
+    assert (segdp_cuda.LAUNCHES, segdp_cuda.DEVICE_H_LAUNCHES) == (
+        launches[0] + 1, launches[1] + 1)

@@ -12,7 +12,11 @@ group with a per-slot hand-off) at grid sizes where a block gets one
 problem, several, or all of them, with either group stalled so that the
 hand-off is walked with the producer ahead and with the consumer ahead,
 with the blocks run in turn (block 0 drains the work queue) and all at
-once (every block draws several problems while the others draw too). The scratch starts as
+once (every block draws several problems while the others draw too);
+each kernel with its wavefront's H in shared memory and, the cap forced
+to 0, in device memory, the route of P above what a block holds (K2's
+blocks then each own a plane of H, which blocks run at once must not
+share). The scratch starts as
 garbage, so an entry that phase 1 leaves unwritten and the wavefront
 reads would show. It checks the
 kernels' indexing, live-tile logic, weight limbs, masks, reductions, tie
@@ -33,7 +37,8 @@ import torch
 
 from freddie_tpu_torch.ops import segdp as tseg
 from freddie_tpu_torch.ops.segdp import ScaledThresholds
-from freddie_tpu_torch.ops.segdp_cuda import REP_STAGE, kernel_inputs
+from freddie_tpu_torch.ops.segdp_cuda import (
+    K1_SMEM_MAX_P, K2_SMEM_MAX_P, REP_STAGE, kernel_inputs)
 from test_segdp import random_problem
 from test_torch_segdp_cuda import padded_batch
 
@@ -87,10 +92,12 @@ def _full_short_batch(rng, B, P, R):
 
 
 def _run_and_check(emulator, tmp_path, B, P, R, wide, full, grid=(), rs=3, scale_w=1,
-                   short=False, full_short=False, stall=None, at_once=None):
+                   short=False, full_short=False, stall=None, at_once=None, cap=None):
     """Runs the emulated kernels on a random padded batch (K2 when
     ``grid`` holds G) and holds them
     against _solve_batch_torch, and their chains against _walk_chains.
+    ``cap``: the widest P whose H stays in shared memory (default the
+    kernel's own limit; 0 puts H in device memory);
     ``short``: few candidates in a wide padding (dead blocks);
     ``scale_w``: weights past two 7-bit limbs; ``full_short``: the batch of
     _full_short_batch; ``stall``: "id:ms", every wait at named barrier id
@@ -118,7 +125,9 @@ def _run_and_check(emulator, tmp_path, B, P, R, wide, full, grid=(), rs=3, scale
                   y=yt, n=torch.from_numpy(n_cand))
     for name, a in inputs.items():
         np.ascontiguousarray(a.numpy(), dtype=np.int32).tofile(tmp_path / f"{name}.bin")
-    subprocess.run([str(emulator), str(B), str(P), str(Cs.shape[2]), str(rs),
+    if cap is None:
+        cap = K2_SMEM_MAX_P if grid else K1_SMEM_MAX_P
+    subprocess.run([str(emulator), str(B), str(P), str(Cs.shape[2]), str(rs), str(cap),
                     *map(str, grid), *([str(at_once)] if at_once else [])],
                    cwd=tmp_path, check=True, capture_output=True, timeout=300,
                    env={**os.environ, **({"EMU_STALL": stall} if stall else {})})
@@ -267,3 +276,42 @@ def test_emulated_k2_blocks_draw_from_the_queue_at_once(emulator, tmp_path, case
     _run_and_check(emulator, tmp_path, case.pop("B"), case.pop("P"), case.pop("R"),
                    case.pop("wide", False), case.pop("full", False), grid=(G,),
                    at_once=G, **case)
+
+
+@pytest.mark.parametrize("case", [
+    dict(B=3, P=16, R=128, wide=False, full=False),
+    dict(B=2, P=40, R=100, wide=True, full=False),  # wide weights, ragged tiles and stages
+    dict(B=1, P=72, R=40, wide=False, full=True),  # two output tiles per side
+    dict(B=1, P=80, R=128, wide=True, full=False),  # two stages, two limbs
+    dict(B=3, P=32, R=64, wide=False, full=False, short=True),  # n_cand << P: dead blocks
+], ids=["3-16-128", "wide_2-40-100", "full_1-72-40", "limbs2_1-80-128", "short"])
+def test_emulated_k1_wavefront_with_h_in_device_memory(emulator, tmp_path, case):
+    """K1 with the cap forced to 0: wavefront_gmem_kernel, H a (B, P, P)
+    plane per problem in device memory that starts as garbage, as above
+    P = 240 on the card. K, best_j, best_k, the chains and phase 1's live
+    scratch equal the plain version's."""
+    case = dict(case)
+    _run_and_check(emulator, tmp_path, case.pop("B"), case.pop("P"), case.pop("R"),
+                   case.pop("wide"), case.pop("full"), cap=0, **case)
+
+
+@pytest.mark.parametrize("case", [
+    dict(B=5, P=16, R=128, G=2, wide=True),  # blocks in turn
+    dict(B=3, P=72, R=40, G=2, full=True, stall=f"{CONSUMER_BAR}:2"),  # two tiles per side
+    # At once, with problems of unlike size, so that the blocks' draws
+    # drift apart and any two of them may hold problems at the same time.
+    dict(B=10, P=24, R=32, G=2, at_once=2),
+    dict(B=12, P=16, R=64, G=3, full_short=True, at_once=3),
+    dict(B=12, P=24, R=32, G=3, at_once=3, stall=f"{CONSUMER_BAR}:2"),
+], ids=["in_turn", "wide_P_slow_consumer", "two_blocks_at_once", "three_blocks_at_once",
+        "three_slow_consumers_at_once"])
+def test_emulated_k2_with_h_in_device_memory(emulator, tmp_path, case):
+    """K2 with the cap forced to 0: each block's consumer runs the
+    wavefront on its own (P, P) plane of a (G, P, P) scratch in device
+    memory, as above P = 176 on the card; with its blocks in turn and
+    all at once, each drawing several problems from the queue while the
+    others run, so a plane shared by two blocks would show."""
+    case = dict(case)
+    _run_and_check(emulator, tmp_path, case.pop("B"), case.pop("P"), case.pop("R"),
+                   case.pop("wide", False), case.pop("full", False), grid=(case.pop("G"),),
+                   cap=0, **case)

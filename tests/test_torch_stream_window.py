@@ -107,37 +107,3 @@ def test_auto_window_engages_on_huge_corpora(corpus, tmp_path, dispatches, monke
     plain = _run(split, tmp_path / "plain")
     assert auto_calls > len(dispatches)
     assert auto == plain == jax_tsvs
-
-
-def test_buckets_wider_than_the_kernel_are_reported(corpus, tmp_path, monkeypatch, capfd):
-    """A segment run for a card whose buckets are wider than K1 holds (the
-    limit patched low, the card simulated: the dispatch's check needs only
-    the device's type) says on stderr how many problems went to the host,
-    the pipeline writes them into the stage's metrics, and the TSVs stay
-    byte-identical. A run that routes nothing says nothing."""
-    import torch
-
-    from freddie_tpu_torch.ops import segdp_cuda
-    from freddie_tpu_torch.stages import pipeline as tpipe
-
-    split, jax_tsvs = corpus
-    work = os.path.dirname(split)
-    monkeypatch.setattr(tseg, "DEVICE_MIN_WORK", 0)
-    stats = tpipe.run_pipeline(os.path.join(work, "sim.bam"), [os.path.join(work, "sim.fastq")],
-                               str(tmp_path / "plain"), log=lambda *_: None, device="cpu")
-    assert "wide_host_batches" not in stats["segment"]
-    assert "solved on the host" not in capfd.readouterr().err
-
-    monkeypatch.setattr(tseg, "resolve_device", lambda _d: torch.device("cpu"))
-    monkeypatch.setattr(segdp_cuda, "K1_MAX_P", 8)
-    real = tseg.run_segment
-    monkeypatch.setattr(tpipe, "run_segment",
-                        lambda s, o, c, device: real(s, o, c, device="cuda"))
-    launches = segdp_cuda.LAUNCHES
-    stats = tpipe.run_pipeline(os.path.join(work, "sim.bam"), [os.path.join(work, "sim.fastq")],
-                               str(tmp_path / "wide"), log=lambda *_: None, device="cpu")
-    seg = stats["segment"]
-    assert seg["wide_host_batches"] > 0 and seg["wide_host_problems"] >= seg["wide_host_batches"]
-    assert f"[segment] {seg['wide_host_problems']} DP problems" in capfd.readouterr().err
-    assert segdp_cuda.LAUNCHES == launches
-    assert _tsv_bytes(str(tmp_path / "wide" / "segment")) == jax_tsvs
