@@ -39,14 +39,18 @@ on the card:
    equal to the host oracle at B=5 and at the stage's buckets;
 7. runs the distributed pipeline in two gloo processes on card 0 and
    the ``workflow`` CLI, each byte-identical to the pipeline of 4;
-8. the wide buckets, where the wavefront's H does not fit a block's
-   shared memory and lives in device memory: K1 at (8, 256, 128) and (2,
-   512, 128) bit-equal to the plain version, chains included, with time
-   and peak memory; K1 at (8, 224, 128) with the cap forced to 0 bit-equal
-   to its shared-memory route; K2 at (8, 256, 128) bit-equal to K1, driven
-   with the counts at zero; K1 at (8, 256, 128) in three groups under a
-   scratch budget forced low, bit-equal; problems of the P = 256 bucket
-   through the dispatch, launched and equal to the host oracle;
+8. the wide buckets, where K1's wavefront runs on thread-block clusters:
+   K1 at (8, 256, 128) and (2, 512, 128) bit-equal to the plain version,
+   chains included, with time, the wavefront's device time and peak
+   memory; K1 at (8, 224, 128) on one block a problem, on clusters, and on
+   clusters with H forced into device memory, bit-equal; a sweep of both
+   wavefronts over P and B on clusters of 8 and 16 blocks with the
+   runtime's resident clusters and the cluster barrier's latency floor
+   (the data behind CLUSTER_MIN_P); K2 at (8, 256, 128) bit-equal to K1,
+   driven with the counts at zero; K1 at (8, 256, 128) in three groups
+   under a scratch budget forced low, bit-equal; problems of the P = 256
+   bucket through the dispatch, one launch at B = 4, equal to the host
+   oracle;
    ``segment --max-problem-size 250`` through the CLI on a corpus with
    buckets 192, 224 and 256, on the card and on the CPU, byte-identical;
    and ``segment --max-problem-size 500`` on a corpus with a problem in
@@ -645,26 +649,34 @@ print("RESULT " + json.dumps({"rank": rank, "records": len(merged),
 
 # The port's CLI entry (what `python -m freddie_tpu_torch.cli` runs), then
 # the K1 launches it made, whether jax was imported, the launches whose
-# wavefront held H in device memory, and the (B, P, R) of the launches.
+# wavefront held H in device memory, those whose wavefront ran on
+# clusters, the (B, P, R) of the launches, and the process's peak device
+# memory (bytes; 0 where it used no card).
 CLI = """
 import json, sys
+import torch
 from freddie_tpu_torch import cli
 from freddie_tpu_torch.ops import segdp_cuda
 rc = cli.main(sys.argv[1:])
-print("LAUNCHES", segdp_cuda.LAUNCHES, "jax" in sys.modules, segdp_cuda.DEVICE_H_LAUNCHES)
+print("LAUNCHES", segdp_cuda.LAUNCHES, "jax" in sys.modules, segdp_cuda.DEVICE_H_LAUNCHES,
+      segdp_cuda.CLUSTER_LAUNCHES)
 print("SHAPES", json.dumps(list(segdp_cuda.LAUNCH_SHAPES)))
+print("PEAK", torch.cuda.max_memory_allocated() if torch.cuda.is_initialized() else 0)
 sys.exit(rc)
 """
 
 
-def cli_counts(stdout: str) -> tuple[int, int, list]:
-    """The K1 launches, device-memory-H launches and launch shapes that a
-    run of CLI printed; raises when it did not print them or imported jax."""
+def cli_counts(stdout: str) -> tuple[int, int, list, int, int]:
+    """The K1 launches, device-memory-H launches, launch shapes, cluster
+    launches and peak device memory that a run of CLI printed; raises when
+    it did not print them or imported jax."""
     tail = [ln.split() for ln in stdout.splitlines() if ln.startswith("LAUNCHES ")]
     shapes = [ln for ln in stdout.splitlines() if ln.startswith("SHAPES ")]
-    if not tail or tail[-1][2] != "False" or not shapes:
+    peak = [ln.split() for ln in stdout.splitlines() if ln.startswith("PEAK ")]
+    if not tail or tail[-1][2] != "False" or not shapes or not peak:
         raise RuntimeError(f"the CLI did not report its launches, or imported jax: {tail}")
-    return int(tail[-1][1]), int(tail[-1][3]), json.loads(shapes[-1][len("SHAPES "):])
+    return (int(tail[-1][1]), int(tail[-1][3]), json.loads(shapes[-1][len("SHAPES "):]),
+            int(tail[-1][4]), int(peak[-1][1]))
 
 
 def run_procs(cmds: list[list[str]], timeout: float) -> list[str]:
@@ -817,19 +829,84 @@ def same_result(a, b) -> bool:
     return all(torch.equal(x, y) for x, y in zip(a, b))
 
 
+# The sweep behind segdp_cuda.CLUSTER_MIN_P and CLUSTER_SIZE: both K1
+# wavefronts at each (P, B), on clusters of each size: B = 1 and 8 at every
+# wide width, and the segment stage's full chunks at P = 96 and 128.
+SWEEP = [(P, B) for P in (96, 128, 192, 224, 256, 512) for B in (1, 8)] + [(96, 128), (128, 64)]
+SWEEP_N = (8, 16)
+
+
+def cluster_sweep(dev, card, rng) -> None:
+    """K1 at each (P, B) of SWEEP: the one-block wavefront (where
+    it fits, P <= K1_SMEM_MAX_P) and the cluster wavefront on N blocks for
+    N in SWEEP_N, bit-equal to each other (and to the plain version where
+    no one-block run exists), each call's time, the profiler's device time
+    of each wavefront launch, cudaOccupancyMaxActiveClusters, and the
+    latency floor: P-1 rounds of the cluster barrier alone on B clusters."""
+    import torch
+
+    from freddie_tpu_torch.ops import segdp_cuda
+    from freddie_tpu_torch.ops.segdp import _solve_batch_torch, _walk_chains
+    from freddie_tpu_torch.tools.profile_kernel_phases import device_ms_by_kernel
+
+    for P, B in SWEEP:
+        args, _t = wide_batch(dev, rng, B, P, 128)
+        routes = ([0] if P <= segdp_cuda.K1_SMEM_MAX_P else []) + list(SWEEP_N)
+        got = {n: segdp_cuda.solve_batch_cuda(*args, with_chains=True, cluster_size=n)
+               for n in routes}
+        if 0 in got:
+            what = "the one-block wavefront"
+            bad = [n for n, res in got.items() if not same_result(res, got[0])]
+        else:
+            # The plain version's K keeps -1 in its last row, where the
+            # kernels store best_j and best_k.
+            what = "the plain version"
+            plain = _solve_batch_torch(*args)
+            walked = _walk_chains(*plain)
+            bad = [n for n, res in got.items() if max_abs_diff(res[:3], plain, P) != 0
+                   or not torch.equal(res[3], walked)]
+            del plain, walked
+        if bad:
+            raise RuntimeError(f"K1 at B={B} P={P}: the wavefront on clusters of {bad} "
+                               f"!= {what}")
+        parts = []
+        for n in routes:
+            ms = time_ms(lambda: segdp_cuda.solve_batch_cuda(*args, cluster_size=n))
+            dev_ms = device_ms_by_kernel(
+                [lambda: segdp_cuda.solve_batch_cuda(*args, cluster_size=n)])
+            wave = dev_ms.get("wavefront_cluster_kernel" if n else "wavefront_kernel")
+            if n == 0:
+                parts.append(f"one block a problem {ms:.3f} ms (wavefront {wave} ms)")
+                continue
+            occ = segdp_cuda.cluster_occupancy(P, n)
+            floor = time_ms(lambda: segdp_cuda.cluster_barrier_probe(B, n, P - 1))
+            parts.append(f"N={n} {ms:.3f} ms (wavefront {wave} ms; max active clusters "
+                         f"{occ['max_active_clusters']}, {occ['smem_bytes']} B a block, "
+                         f"{occ['registers']} registers; barrier floor {floor:.4f} ms)")
+        log(f"[sweep] K1 at B={B} P={P} R=128 (by shape: clusters of "
+            f"{segdp_cuda.cluster_size_for(B, P)}): results equal to {what}, chains "
+            f"included; whole call (medians of {TIMED_REPS}), the wavefront launch's device "
+            f"time (profiler, mean of 3) and the floor of {P - 1} cluster-barrier rounds "
+            f"alone: {'; '.join(parts)}; on {card}")
+        del args, _t, got
+        torch.cuda.empty_cache()
+
+
 def wide_phase(dev, card, workdir: str, p512: dict) -> dict:
-    """The wide buckets, where the wavefront keeps H in device memory:
-    K1 at (8, 256, 128) and (2, 512, 128) against the plain version; K1 at
-    (8, 224, 128) with the cap forced to 0 against its shared-memory
-    route; K2 at (8, 256, 128), driven with the counts at zero, against
-    K1; K1 under a scratch budget forced low enough for three groups;
-    problems of the P = 256 bucket through solve_batch_device against
-    solve_host; and the ``segment`` CLI on the card against the CPU
+    """The wide buckets, where K1's wavefront runs on thread-block
+    clusters: K1 at (8, 256, 128) and (2, 512, 128) against the plain
+    version, with its wavefront's device time and the call's peak memory;
+    K1 at (8, 224, 128) on one block a problem, on clusters and on clusters
+    with H forced into device memory, against each other; the sweep
+    (cluster_sweep); K2 at (8, 256, 128), driven with the counts at zero,
+    against K1; K1 under a scratch budget forced low enough for three
+    groups; problems of the P = 256 bucket through solve_batch_device
+    against solve_host; and the ``segment`` CLI on the card against the CPU
     (--max-problem-size 250, buckets up to 256) and against the host
     oracle (--max-problem-size 500, a problem in the P = 512 bucket; its
     host run was started by start_p512_host).
-    Returns the CLI runs' K1 launches and device-memory-H launches, K2's
-    device-memory-H launches, and the two wide kernel rows."""
+    Returns the CLI runs' K1 launches, cluster launches and device-memory-H
+    launches, K2's device-memory-H launches, and the two wide kernel rows."""
     import numpy as np
     import torch
 
@@ -839,6 +916,7 @@ def wide_phase(dev, card, workdir: str, p512: dict) -> dict:
         DPProblem, ScaledThresholds, _solve_batch_torch, _walk_chains, solve_batch_device,
         solve_host)
     from freddie_tpu_torch.stages.split import run_split
+    from freddie_tpu_torch.tools.profile_kernel_phases import device_ms_by_kernel
     from freddie_tpu_torch.utils.sim import simulate
 
     rng = np.random.default_rng(256)
@@ -857,37 +935,45 @@ def wide_phase(dev, card, workdir: str, p512: dict) -> dict:
         del plain
         k1_ms = time_ms(lambda: segdp_cuda.solve_batch_cuda(*args))
         p_ms = time_ms(lambda: _solve_batch_torch(*args))
+        phases = device_ms_by_kernel([lambda: segdp_cuda.solve_batch_cuda(*args)])
         b_ms, b_by, by_bytes, by_ops = bound_ms(t, P)
-        log(f"[wide] K1 at B={B} P={P} R={R} (H in device memory above K1_SMEM_MAX_P = "
-            f"{segdp_cuda.K1_SMEM_MAX_P}; {segdp_cuda.group_size(B, P)} problems a group): "
-            f"bit-equal to plain, chains equal to _walk_chains, "
-            f"{int((k1[1] >= 0).sum())}/{B} segmented; {k1_ms:.3f} ms, plain {p_ms:.3f} ms "
-            f"(medians of {TIMED_REPS}); bound {b_ms:.4f} ms by {b_by} (bytes {by_bytes:.4f} "
-            f"ms, operations {by_ops:.4f} ms); the call's peak device memory {k1_mib:.0f} MiB; "
-            f"on {card}")
+        n = segdp_cuda.cluster_size_for(B, P)
+        log(f"[wide] K1 at B={B} P={P} R={R} (wavefront on clusters of {n} blocks from "
+            f"CLUSTER_MIN_P = {segdp_cuda.CLUSTER_MIN_P}, H in their shared memory up to P = "
+            f"{segdp_cuda.cluster_smem_max_p(n)}; "
+            f"{segdp_cuda.group_size(B, P)} problems a group): bit-equal to plain, chains equal "
+            f"to _walk_chains, {int((k1[1] >= 0).sum())}/{B} segmented; {k1_ms:.3f} ms, plain "
+            f"{p_ms:.3f} ms (medians of {TIMED_REPS}); on the device pair_stats "
+            f"{phases.get('pair_stats_kernel')} ms + wavefront "
+            f"{phases.get('wavefront_cluster_kernel')} ms (profiler, mean of 3); bound "
+            f"{b_ms:.4f} ms by {b_by} (bytes {by_bytes:.4f} ms, operations {by_ops:.4f} ms); "
+            f"the call's peak device memory {k1_mib:.0f} MiB; on {card}")
         if P == 256:
             wide_args, k1_256 = args, k1
-            rows["K1 wide (device-memory H)"] = dict(
+            rows["K1 wide (cluster wavefront)"] = dict(
                 max_abs_err=err, ms=k1_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=None)
         del args, t, k1
     torch.cuda.empty_cache()
 
-    # The two wavefronts on a batch that both take: P = 224, cap 0 or not.
+    # The wavefronts on a batch that all take: P = 224 on one block a
+    # problem, on clusters, and on clusters with H forced to device memory.
     args, _t = wide_batch(dev, rng, 8, 224, 128)
-    smem = segdp_cuda.solve_batch_cuda(*args, with_chains=True)
-    gmem = segdp_cuda.solve_batch_cuda(*args, with_chains=True, smem_max_p=0)
-    if not same_result(smem, gmem):
-        raise RuntimeError("K1 at P = 224: the device-memory wavefront != the shared-memory one")
-    smem_ms = time_ms(lambda: segdp_cuda.solve_batch_cuda(*args))
-    gmem_ms = time_ms(lambda: segdp_cuda.solve_batch_cuda(*args, smem_max_p=0))
-    log(f"[wide] K1 at B=8 P=224 R=128 with the cap forced to 0 (H in device memory): "
-        f"K, best_j, best_k and the chains equal to the shared-memory route's; "
-        f"{gmem_ms:.3f} ms against {smem_ms:.3f} ms (medians of {TIMED_REPS}), on {card}")
-    del args, _t, smem, gmem
+    runs = {"one block": dict(cluster_size=0), "clusters": {},
+            "clusters, H in device memory": dict(smem_max_p=0)}
+    res = {k: segdp_cuda.solve_batch_cuda(*args, with_chains=True, **kw) for k, kw in runs.items()}
+    if not all(same_result(r, res["one block"]) for r in res.values()):
+        raise RuntimeError("K1 at P = 224: the wavefronts disagree")
+    times = {k: time_ms(lambda: segdp_cuda.solve_batch_cuda(*args, **kw)) for k, kw in runs.items()}
+    log(f"[wide] K1 at B=8 P=224 R=128: K, best_j, best_k and the chains equal on every "
+        f"wavefront; {', '.join(f'{k} {v:.3f} ms' for k, v in times.items())} (medians of "
+        f"{TIMED_REPS}), on {card}")
+    del args, _t, res
+
+    cluster_sweep(dev, card, rng)
 
     # K2's path above K2_SMEM_MAX_P, driven once with every count at zero.
-    segdp_cuda.LAUNCHES = segdp_cuda.DEVICE_H_LAUNCHES = 0
+    segdp_cuda.LAUNCHES = segdp_cuda.DEVICE_H_LAUNCHES = segdp_cuda.CLUSTER_LAUNCHES = 0
     segdp_cuda.PIPELINED_LAUNCHES = segdp_cuda.PIPELINED_DEVICE_H_LAUNCHES = 0
     k2 = segdp_cuda.solve_batch_cuda(*wide_args, pipelined=True, with_chains=True)
     torch.cuda.synchronize()
@@ -898,7 +984,7 @@ def wide_phase(dev, card, workdir: str, p512: dict) -> dict:
     if not same_result(k2, k1_256):
         raise RuntimeError("K2 at P = 256 != K1")
     k2_ms = time_ms(lambda: segdp_cuda.solve_batch_cuda(*wide_args, pipelined=True))
-    rows["K2 wide"] = dict(rows["K1 wide (device-memory H)"], ms=k2_ms)
+    rows["K2 wide"] = dict(rows["K1 wide (cluster wavefront)"], ms=k2_ms)
     log(f"[wide] K2 at B=8 P=256 R=128 (grid {segdp_cuda.pipelined_grid(8, 256)}, H in device "
         f"memory above K2_SMEM_MAX_P = {segdp_cuda.K2_SMEM_MAX_P}; the runtime reports "
         f"{json.dumps(segdp_cuda.pipelined_occupancy(256))}): {k2_launches} launch with the "
@@ -932,15 +1018,19 @@ def wide_phase(dev, card, workdir: str, p512: dict) -> dict:
         y[0] = 0
         problems.append(DPProblem(C=np.cumsum(inc, axis=0).astype(np.int64), y=y,
                                   W=rng.integers(1, 5, size=r).astype(np.int64), read_support=3))
-    segdp_cuda.LAUNCHES = segdp_cuda.DEVICE_H_LAUNCHES = 0
+    segdp_cuda.LAUNCHES = segdp_cuda.DEVICE_H_LAUNCHES = segdp_cuda.CLUSTER_LAUNCHES = 0
+    segdp_cuda.LAUNCH_SHAPES.clear()
     got = solve_batch_device(problems, thr, pad_p_to=256, pad_r_to=128, device=dev)
     if got != [solve_host(pr, thr) for pr in problems]:
         raise RuntimeError("the P = 256 bucket through the dispatch != solve_host")
-    if segdp_cuda.LAUNCHES != 1 or segdp_cuda.DEVICE_H_LAUNCHES != 1:
-        raise RuntimeError(f"the P = 256 bucket made {segdp_cuda.LAUNCHES} K1 launches")
+    if (segdp_cuda.LAUNCHES, segdp_cuda.CLUSTER_LAUNCHES) != (1, 1) \
+            or list(segdp_cuda.LAUNCH_SHAPES) != [(4, 256, 128)]:
+        raise RuntimeError(f"the P = 256 bucket made {segdp_cuda.LAUNCHES} K1 launches, "
+                           f"{segdp_cuda.CLUSTER_LAUNCHES} on clusters, at "
+                           f"{list(segdp_cuda.LAUNCH_SHAPES)}")
     log(f"[wide] {len(problems)} problems of {[len(pr.y) for pr in problems]} candidates "
-        f"(the P = 256 bucket) through solve_batch_device: 1 K1 launch with H in device "
-        f"memory, equal to solve_host")
+        f"(the P = 256 bucket) through solve_batch_device: 1 K1 launch at B=4 (padded from "
+        f"1, not 8) with its wavefront on clusters, equal to solve_host")
 
     d = os.path.join(workdir, "wide")
     os.makedirs(d)
@@ -963,27 +1053,33 @@ def wide_phase(dev, card, workdir: str, p512: dict) -> dict:
                            f"{host_log[-3000:]}")
     log(f"[wide] the host-oracle route over the P = 512 corpus ended "
         f"{time.perf_counter() - p512['started']:.1f} s after it started")
-    k1_launches = h_launches = 0
+    k1_launches = h_launches = c_launches = 0
     for what, flags, out, card_dir, other_dir, want in (
             ("--device cpu", WIDE_FLAGS, outs[0], os.path.join(d, dev.type), os.path.join(d, "cpu"),
              {192, 224, 256}),
             ("the host-oracle route (--no-device)", P512_FLAGS, outs[2],
              os.path.join(p512["dir"], dev.type), os.path.join(p512["dir"], "host"), {512})):
-        launches, on_device, shapes = cli_counts(out)
+        launches, on_device, shapes, on_clusters, peak = cli_counts(out)
         widths = {P for _B, P, _R in shapes}
-        if launches < len(want) or on_device <= 0 or not want <= widths:
-            raise RuntimeError(f"segment {' '.join(flags)}: {launches} K1 launches, {on_device} "
-                               f"with H in device memory, at widths {sorted(widths)}")
+        wide_shapes = [s for s in shapes if s[1] >= segdp_cuda.CLUSTER_MIN_P]
+        if launches < len(want) or not want <= widths or on_clusters != len(wide_shapes):
+            raise RuntimeError(f"segment {' '.join(flags)}: {launches} K1 launches, "
+                               f"{on_clusters} on clusters, at (B, P, R) {shapes}")
         names = same_tsvs(card_dir, other_dir, f"segment {' '.join(flags)}, card against {what}")
         n_reads = len(sim.reads) if flags is WIDE_FLAGS else p512["reads"]
+        groups = {tuple(s): -(-s[0] // segdp_cuda.group_size(s[0], s[1])) for s in wide_shapes}
         log(f"[wide] cli segment {' '.join(flags)} on {n_reads} reads: --device {dev.type} "
-            f"made {launches} K1 launches ({on_device} with H in device memory) at (B, P, R) "
-            f"{sorted(set(map(tuple, shapes)))}; {len(names)} segment TSVs byte-identical to "
-            f"{what}")
+            f"made {launches} K1 launches, {on_clusters} of them (every one at P >= "
+            f"{segdp_cuda.CLUSTER_MIN_P}) on clusters, {on_device} with H in device memory, at "
+            f"(B, P, R) {sorted(set(map(tuple, shapes)))}; K1 groups by wide shape "
+            f"{json.dumps({str(k): v for k, v in sorted(groups.items())})}; the process's peak "
+            f"device memory {peak / 2**20:.0f} MiB; {len(names)} segment TSVs byte-identical "
+            f"to {what}")
         k1_launches += launches
+        c_launches += on_clusters
         h_launches += on_device
-    return dict(k1_launches=k1_launches, k1_device_h_launches=h_launches,
-                k2_device_h_launches=k2_launches, rows=rows)
+    return dict(k1_launches=k1_launches, k1_cluster_launches=c_launches,
+                k1_device_h_launches=h_launches, k2_device_h_launches=k2_launches, rows=rows)
 
 
 def window_phase(dev, card, run: dict, workdir: str) -> int:
@@ -1153,18 +1249,19 @@ def main(argv=None) -> int:
         raise RuntimeError("jax was imported")
 
     log(f"[time] the whole run, from the build's end: {time.perf_counter() - started:.1f} s")
-    log(f"[kernels] segdp (K1) launches by path: {json.dumps(by_path)}, of which with H in "
+    log(f"[kernels] segdp (K1) launches by path: {json.dumps(by_path)}, of which with the "
+        f"wavefront on clusters: {json.dumps({'wide': wide['k1_cluster_launches']})}, with H in "
         f"device memory: {json.dumps({'wide': wide['k1_device_h_launches']})}; "
         f"segdp_pipelined (K2): {json.dumps({'pipelined': pipe_launches})}, with H in device "
         f"memory: {json.dumps({'wide': wide['k2_device_h_launches']})}")
-    if wide["k1_device_h_launches"] <= 0 or wide["k2_device_h_launches"] <= 0:
+    if wide["k1_cluster_launches"] <= 0 or wide["k2_device_h_launches"] <= 0:
         raise RuntimeError("a wide route was launched no time in its run")
     log(card)
     kern.update(wide["rows"])
     rows = [("segdp", "freddie_tpu/ops/segdp_pallas.py:65", sum(by_path.values())),
             ("segdp_pipelined", "freddie_tpu/ops/segdp_pallas.py:445", pipe_launches),
-            ("K1 wide (device-memory H)", "freddie_tpu/ops/segdp_pallas.py:65",
-             wide["k1_device_h_launches"]),
+            ("K1 wide (cluster wavefront)", "freddie_tpu/ops/segdp_pallas.py:65",
+             wide["k1_cluster_launches"]),
             ("K2 wide", "freddie_tpu/ops/segdp_pallas.py:445", wide["k2_device_h_launches"])]
     log(json.dumps({"kernels": [{
         "name": name,

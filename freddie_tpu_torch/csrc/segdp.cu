@@ -14,9 +14,9 @@
 
 namespace {
 
-// Dynamic shared memory of the wavefront (K1's launch 2, and part of K2's):
-// H and ys when H lives in shared memory, ys alone when it lives in
-// device memory.
+// Dynamic shared memory of wavefront_body (K1's one-block wavefront, and
+// part of K2): H and ys when H lives in shared memory, ys alone when it
+// lives in device memory.
 size_t dyn_smem(int P, bool smem_h) {
   return (smem_h ? (size_t)P * P * sizeof(float) : 0) + (size_t)P * sizeof(int);
 }
@@ -48,6 +48,47 @@ cudaError_t launch_pair_stats(const int* Cs, const int* Thi, const int* Tlo, con
   return cudaGetLastError();
 }
 
+// The launch of `kernel` on B clusters of N blocks of kThreads threads
+// with `smem` bytes of dynamic shared memory each, into *cfg (its
+// attribute array *attr); a cluster of more than 8 blocks allowed.
+cudaError_t grid_of_clusters(const void* kernel, int B, int N, size_t smem, cudaStream_t s,
+                             cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
+  if (N > 8) {
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+  }
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(N * B);
+  cfg->blockDim = dim3(segdp::kThreads);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = s;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = N;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
+}
+
+// K1's cluster wavefront at width P, H in shared memory when smem_h, on
+// clusters of N blocks: the kernel, with its shared memory opted in (and
+// a cluster of more than 8 blocks allowed), and the launch's
+// configuration in *cfg, whose attribute array is *attr.
+cudaError_t cluster_config(int B, int P, int N, bool smem_h, cudaStream_t s,
+                           cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
+                           const void** kernel) {
+  if (N < 1 || N > segdp::kMaxCluster) return cudaErrorInvalidValue;
+  *kernel = smem_h ? reinterpret_cast<const void*>(&segdp::wavefront_cluster_kernel<true>)
+                   : reinterpret_cast<const void*>(&segdp::wavefront_cluster_kernel<false>);
+  const size_t smem = segdp::cluster_smem_bytes(P, N, smem_h);
+  cudaError_t err = smem_h ? opt_in_smem(segdp::wavefront_cluster_kernel<true>, smem)
+                           : opt_in_smem(segdp::wavefront_cluster_kernel<false>, smem);
+  if (err != cudaSuccess) return err;
+  return grid_of_clusters(*kernel, B, N, smem, s, cfg, attr);
+}
+
 // K2 at width P, one instantiation per PairSmem size as for K1's launch
 // 1 and per home of H (shared memory when smem_h), and in *dyn the
 // dynamic shared memory it takes: the pair statistics' slots, the
@@ -72,18 +113,21 @@ extern "C" {
 // Solves B padded problems with K1 (two launches); R must be a multiple
 // of kMmaStage (reps padded with zero weights); wmax: (B,) each problem's
 // largest weight, chains: (B, P+2) the walked breakpoint chains. The
-// wavefront keeps H in shared memory when P <= smem_max_p, and otherwise
-// in H: (B, P, P) f32 scratch in device memory (may be null when P <=
-// smem_max_p). Returns 0 or the cudaError_t of the first launch the
-// runtime refused (cudaGetLastError after each launch).
+// wavefront is wavefront_kernel (one block a problem, H in its shared
+// memory) when cluster_n is 0, and otherwise wavefront_cluster_kernel on
+// clusters of cluster_n blocks, with H in their shared memory when P <=
+// smem_max_p and in H: (B, P, P) f32 scratch in device memory above (H
+// may be null when P <= smem_max_p). Returns 0 or the cudaError_t of the
+// first launch the runtime refused (cudaGetLastError after each launch),
+// a cluster that cannot be scheduled included.
 int segdp_solve(const int* Cs, const int* Thi, const int* Tlo, const int* W,
                 const int* wsum, const int* wmax, const int* y, const int* n_cand,
                 float* OT, float* INS, float* H, int* K, int* best_j, int* best_k,
                 int* chains, int B, int P, int R, int read_support, int smem_max_p,
-                void* stream) {
+                int cluster_n, void* stream) {
   const bool smem_h = P <= smem_max_p;
   if (B <= 0 || P <= 0 || R < 0 || R % segdp::kMmaStage != 0 || B > 65535 ||
-      (!smem_h && H == nullptr))
+      cluster_n < 0 || (!smem_h && (H == nullptr || cluster_n == 0)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 
@@ -95,18 +139,62 @@ int segdp_solve(const int* Cs, const int* Thi, const int* Tlo, const int* W,
                                                               read_support, s);
   if (err != cudaSuccess) return (int)err;
 
-  const size_t smem = dyn_smem(P, smem_h);
-  if (smem_h) {
+  if (cluster_n == 0) {
+    const size_t smem = dyn_smem(P, true);
     err = opt_in_smem(segdp::wavefront_kernel, smem);
     if (err != cudaSuccess) return (int)err;
     segdp::wavefront_kernel<<<B, segdp::kThreads, smem, s>>>(
         OT, INS, y, n_cand, K, best_j, best_k, chains, P);
-  } else {
-    err = opt_in_smem(segdp::wavefront_gmem_kernel, smem);
-    if (err != cudaSuccess) return (int)err;
-    segdp::wavefront_gmem_kernel<<<B, segdp::kThreads, smem, s>>>(
-        OT, INS, y, n_cand, H, K, best_j, best_k, chains, P);
+    return (int)cudaGetLastError();
   }
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  const void* kernel = nullptr;
+  err = cluster_config(B, P, cluster_n, smem_h, s, &cfg, &attr, &kernel);
+  if (err != cudaSuccess) return (int)err;
+  err = smem_h ? cudaLaunchKernelEx(&cfg, segdp::wavefront_cluster_kernel<true>, OT, INS, y,
+                                    n_cand, H, K, best_j, best_k, chains, P)
+               : cudaLaunchKernelEx(&cfg, segdp::wavefront_cluster_kernel<false>, OT, INS, y,
+                                    n_cand, H, K, best_j, best_k, chains, P);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// What the runtime reports for K1's cluster wavefront at width P on
+// clusters of N blocks (H in shared memory when smem_h) on the current
+// device: out[0] the clusters that can be resident at once
+// (cudaOccupancyMaxActiveClusters), out[1] the shared memory per block
+// (static + dynamic), out[2] the registers per thread. Returns 0 or a
+// cudaError_t.
+int segdp_cluster_occupancy(int P, int N, int smem_h, int* out) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  const void* kernel = nullptr;
+  cudaError_t err = cluster_config(1, P, N, smem_h != 0, nullptr, &cfg, &attr, &kernel);
+  int clusters = 0;
+  cudaFuncAttributes fa;
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, kernel);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = clusters;
+  out[1] = (int)(fa.sharedSizeBytes + cfg.dynamicSmemBytes);
+  out[2] = fa.numRegs;
+  return 0;
+}
+
+// `steps` rounds of the cluster barrier alone on B clusters of N blocks:
+// the cluster wavefront's latency floor at P = steps + 1. Returns 0 or
+// the cudaError_t of the refused launch.
+int segdp_cluster_barrier_probe(int B, int N, int steps, void* stream) {
+  if (B <= 0 || N < 1 || N > segdp::kMaxCluster) return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err =
+      grid_of_clusters(reinterpret_cast<const void*>(&segdp::cluster_barrier_kernel), B, N, 0,
+                       static_cast<cudaStream_t>(stream), &cfg, &attr);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaLaunchKernelEx(&cfg, segdp::cluster_barrier_kernel, steps);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

@@ -12,13 +12,11 @@
 //    OT[j][k][k_], so the wavefront reads contiguous planes. One body,
 //    pair_stats_mma_body, serves both kernels: the contraction on the
 //    tensor cores, only over the entries the wavefront reads (below).
-//  - wavefront_body (phases 2-3 and the chain walk), one problem on a
-//    group of warps. H (P x P f32) lives in shared memory where it fits
-//    the block, in device memory above that (below); the backward
-//    wavefront over j is P strictly dependent steps, each a set of
-//    independent masked row maxima (one warp per row, first-index
-//    tie-break) read from the OT plane j, touching only the rows that can
-//    be valid (j < k < end). Then the top-level row-major first argmax
+//  - the wavefront (phases 2-3 and the chain walk): the backward sweep
+//    over j is P strictly dependent steps, each a set of independent
+//    masked row maxima (one warp per row, first-index tie-break) over the
+//    OT plane j and H (P x P f32), touching only the rows that can be
+//    valid (j < k < end). Then the top-level row-major first argmax
 //    against the no-split baseline, and one thread follows the
 //    backpointers from the top pair and writes the -1-terminated chain of
 //    P+2 entries that the dispatch reads back, so no launch follows the
@@ -28,22 +26,46 @@
 // keeps one problem's (P, P, P) outside tensor in VMEM (1 MiB at P = 64);
 // a Hopper block has at most 227 KB of shared memory, so K1 is two
 // launches with the outside tensor in global memory: pair_stats_kernel,
-// grid (P, B), one block per (problem, k); then wavefront_kernel, grid
-// (B), one block per problem.
-//
-// Where H lives. H is 4 P^2 bytes: with ys it fits one block's shared
-// memory up to P = 240 (segdp_cuda.K1_SMEM_MAX_P), and wavefront_kernel
-// keeps it there. Above, wavefront_gmem_kernel runs the same body on a
-// (B, P, P) f32 plane per problem in device memory that the wrapper
-// allocates, with only ys in shared memory; at P = 256 a plane is 256
-// KiB, so a batch of 8 stays in the 50 MB L2. Phase 1 tiles any P, and
-// its output is in device memory already, so nothing else changes with
-// P. The host entry picks the wavefront by P against a cap the caller
-// passes (routing by shape; a cap of 0 forces the device-memory route at
-// any P, which is how the tests reach it at small shapes). The wrapper
-// solves the batch in groups whose scratch fits a budget, reusing one
-// set of scratch buffers, so the (P, P, P) plane per problem (512 MiB at
-// P = 512) never has to be held for the whole batch at once.
+// grid (P, B), one block per (problem, k); then the wavefront, in one of
+// two kernels chosen by P (segdp_cuda.CLUSTER_MIN_P; routing by shape):
+//  - wavefront_kernel, grid (B): wavefront_body on one block of 8 warps
+//    per problem, H in its shared memory. Narrow buckets come in batches
+//    of hundreds, which fill the card with one block each.
+//  - wavefront_cluster_kernel, grid (N*B): a thread-block cluster of N
+//    blocks per problem, for the wide buckets, whose batches hold a few
+//    problems. What bounds the wavefront there is latency, not work: P
+//    dependent steps, and in each a warp's walk along a row of up to P
+//    columns. With one block per problem, each step's row walk waited on
+//    its loads of the outside plane from device memory, one dependent
+//    round trip per 32 columns (~40 ms at P = 512), on as many SMs as the
+//    batch has problems. The cluster kernel cuts both: (1) block r owns
+//    rows k = r, r+N, ... (cyclic, so the shrinking triangle stays even),
+//    so a step's rows are spread over N SMs; (2) the outside planes do not
+//    depend on the wavefront (phase 1 wrote all of them before), so each
+//    thread starts the cp.async copies of the next step's plane -- the
+//    live part of its own rows, exactly the words it will read -- before
+//    it computes this one, and a step reads only shared memory; (3) each
+//    block keeps its rows of H in its own shared memory, as triangles
+//    (row k holds columns k+1..P-1 only, which is all the sweep touches),
+//    so every read of H is local; the one value a row produces per step,
+//    H[j][k], goes to row j's owner by a DSMEM store. One cluster barrier
+//    per step (arrive.release, wait.acquire) orders those stores before
+//    the next step's reads and frees the ring stage the step read. What
+//    is left per step is the barrier's round trip across the cluster and
+//    one row walk in shared memory; chip_smoke times the first alone.
+//    H lives in the cluster's shared memory up to the widest P whose
+//    triangle and the two-plane ring fit a block
+//    (segdp_cuda.cluster_smem_max_p); above that the same kernel keeps
+//    its rows in a (B, P, P) f32 plane in device memory (template flag
+//    kSmemH false), and a cap of 0 forces that route at any P, which is
+//    how the tests reach it at small shapes. The top level merges each
+//    block's argmax in rank 0's shared memory through DSMEM, and rank 0
+//    walks the chain from K in device memory.
+// Phase 1 tiles any P, and its output is in device memory already, so
+// nothing else changes with P. The wrapper solves the batch in groups
+// whose scratch fits a budget, reusing one set of scratch buffers, so the
+// (P, P, P) plane per problem (512 MiB at P = 512) never has to be held
+// for the whole batch at once.
 //
 // Phase 1 on this card (pair_stats_mma_body; K1 runs one block per
 // (problem, k), K2's producer group runs a problem's k in turn):
@@ -170,6 +192,8 @@ constexpr int kConsumerRegs = 32;
 constexpr int kProducerRegs = 104;
 constexpr int kMmaNt = 32 / kMmaWarps;  // 8-column product tiles a warp owns
 constexpr int kOpRow = 2 * kMmaStage + 32;  // bytes of one operand row of a stage, padded
+constexpr int kOtStages = 2;  // the cluster wavefront's ring of outside planes
+constexpr int kMaxCluster = 16;  // blocks a cluster may have (16 is non-portable)
 
 #ifndef CUDA_EMU
 // Barrier over the `nthreads` threads (whole warps) that use barrier `id`;
@@ -211,6 +235,11 @@ __device__ __forceinline__ void cp_async_8(void* smem, const void* gmem) {
   const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8;" ::"r"(dst), "l"(gmem) : "memory");
 }
+// The same for 4 bytes (both addresses 4-byte aligned).
+__device__ __forceinline__ void cp_async_4(void* smem, const void* gmem) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(dst), "l"(gmem) : "memory");
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;" ::: "memory");
 }
@@ -236,6 +265,37 @@ __device__ __forceinline__ void mma_m16n8k32_s8(int (&d)[4], const unsigned (&a)
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
       : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+#endif
+
+#ifndef CUDA_EMU
+// Thread-block clusters. The block's rank in its cluster and the
+// cluster's number of blocks.
+__device__ __forceinline__ int cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return (int)r;
+}
+__device__ __forceinline__ int cluster_nblocks() {
+  unsigned n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(n));
+  return (int)n;
+}
+// The address of the variable at `p` (this block's shared memory) in the
+// shared memory of the cluster's block `rank` (DSMEM): a generic address
+// that plain loads and stores take.
+template <class T>
+__device__ __forceinline__ T* cluster_map(T* p, int rank) {
+  unsigned long long out;
+  asm volatile("mapa.u64 %0, %1, %2;" : "=l"(out) : "l"(p), "r"(rank));
+  return reinterpret_cast<T*>(out);
+}
+// Barrier over every thread of the cluster: what a thread wrote before it,
+// to its own or another block's shared memory or to device memory, is
+// visible to every thread of the cluster after it (arrive with release,
+// wait with acquire).
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\n\tbarrier.cluster.wait.acquire;" ::: "memory");
 }
 #endif
 
@@ -491,8 +551,10 @@ __device__ __forceinline__ void pair_stats_mma_body(
 // Phases 2-3 of one problem, on `nwarps` warps (tid 0..32*nwarps-1, at
 // most kWarps) sharing barrier `bar`. Reads OTb/INb as phase 1 wrote them,
 // yb: (P,) positions, n_cand; H: P*P floats of shared memory or of device
-// memory that only this group reads and writes (wavefront_gmem_kernel
-// says why that is safe); ys: P ints of shared memory. Writes Kb: (P, P)
+// memory that only this group reads and writes (K2's consumer above its
+// shared-memory cap: the group_sync step barrier orders a row's writes
+// before the next step's reads in either memory); ys: P ints of shared
+// memory. Writes Kb: (P, P)
 // backpointers (rows 0..P-2; row P-1 holds best_j, best_k in columns 0
 // and 1, -1 elsewhere, as the TPU kernel stores them) and *bj, *bk; and,
 // when `chain` is not null, the P+2
@@ -646,28 +708,206 @@ wavefront_kernel(const float* __restrict__ OT, const float* __restrict__ INS,
                  P, H, ys, threadIdx.x, kWarps, 0);
 }
 
-// K1, launch 2 where H does not fit a block's shared memory: grid (B), as
-// wavefront_kernel, with Hs: (B, P, P) f32 scratch in device memory, the
-// plane of problem b for block b, and only ys (P ints) in dynamic shared
-// memory. Hs is written and read inside this launch, so it is neither
-// const nor __restrict__: nothing may let the compiler load it through
-// the non-coherent path (ld.global.nc), which need not see the launch's
-// own writes. wavefront_body's step barrier (bar.sync, through
-// group_sync) orders row j's writes before the next step's reads of it,
-// in device memory as in shared memory: every thread that reads H is in
-// the block that wrote it.
+// Offset, in floats, of row li of cluster block r's packed triangle: the
+// block owns rows k = r + li*N (cyclic), and row k keeps only its columns
+// k+1..P-1, the ones the wavefront reads or writes (H[k][q] and
+// outside(j, k, q) for q > k). Row li starts at sum_{l < li} (P-1-(r+l*N)).
+__host__ __device__ __forceinline__ int tri_row_off(int li, int r, int N, int P) {
+  return li * (P - 1 - r) - N * (li * (li - 1) / 2);
+}
+// Floats of block r's whole triangle; rank 0's is the largest, and every
+// block of a cluster lays its shared memory out by rank 0's sizes, so an
+// offset means the same in all of them.
+__host__ __device__ __forceinline__ int tri_floats(int r, int N, int P) {
+  return r < P ? tri_row_off((P - 1 - r) / N + 1, r, N, P) : 0;
+}
+
+// Dynamic shared memory of wavefront_cluster_kernel at width P with N
+// blocks a cluster: H's triangle when it lives there, kOtStages triangles
+// of outside planes, ys, and the cluster's argmax slots.
+__host__ __device__ __forceinline__ int cluster_smem_bytes(int P, int N, bool smem_h) {
+  return 4 * ((smem_h ? 1 : 0) + kOtStages) * tri_floats(0, N, P) + 4 * P + 8 * kMaxCluster;
+}
+
+// K1, launch 2, on a thread-block cluster of N blocks per problem (grid
+// N*B, cluster (N)); the design and what bounds it are in the header. The
+// block of rank r owns rows k = r, r+N, ... of H and computes H[j][k],
+// K[j][k] for those k at every step j, from its own rows of H and from
+// outside plane j, which its threads copied into a ring stage the step
+// before (each thread copies exactly the words it reads later, so its
+// cp.async wait orders them; the ring slot is rewritten only after the
+// step barrier that ends its last reads). H[j][k] goes to row j's owner:
+// through DSMEM when H is in shared memory (kSmemH), into Hg: (B, P, P)
+// f32 in device memory otherwise (written and read in this launch, so
+// neither const nor __restrict__). One cluster barrier per step, release
+// then acquire, orders step j's writes before the reads of step j-1. The
+// top level: each block's first argmax over its rows, merged in rank 0's
+// slots through DSMEM under (value desc, index asc); the barrier after the
+// merge writes is the last access of any block to another's shared
+// memory, and every block passes it before it exits. Rank 0's thread 0
+// then walks the chain from K in device memory. Inputs and outputs as
+// wavefront_kernel's.
+template <bool kSmemH>
 __global__ void __launch_bounds__(kThreads)
-wavefront_gmem_kernel(const float* __restrict__ OT, const float* __restrict__ INS,
-                      const int* __restrict__ y, const int* __restrict__ n_cand, float* Hs,
-                      int* K, int* __restrict__ best_j, int* __restrict__ best_k,
-                      int* __restrict__ chains, int P) {
+wavefront_cluster_kernel(const float* __restrict__ OT, const float* __restrict__ INS,
+                         const int* __restrict__ y, const int* __restrict__ n_cand, float* Hg,
+                         int* K, int* __restrict__ best_j, int* __restrict__ best_k,
+                         int* __restrict__ chains, int P) {
   extern __shared__ __align__(16) unsigned char segdp_dyn_smem[];
-  int* ys = reinterpret_cast<int*>(segdp_dyn_smem);
-  const int b = blockIdx.x;
+  __shared__ float wred_v[kWarps];
+  __shared__ int wred_i[kWarps];
+
+  const int N = cluster_nblocks();
+  const int r = cluster_rank();
+  const int b = blockIdx.x / N;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
   const long long PP = (long long)P * P;
-  wavefront_body(OT + b * PP * P, INS + b * PP, y + (long long)b * P, n_cand[b],
-                 K + b * PP, best_j + b, best_k + b, chains + (long long)b * (P + 2),
-                 P, Hs + b * PP, ys, threadIdx.x, kWarps, 0);
+  const float* OTb = OT + b * PP * P;
+  const float* INb = INS + b * PP;
+  int* Kb = K + b * PP;
+  float* Hgb = Hg + b * PP;  // unused when kSmemH
+  const int end = n_cand[b] - 1;
+  const float neg = -INFINITY;
+
+  const int tri = tri_floats(0, N, P);
+  float* Hs = reinterpret_cast<float*>(segdp_dyn_smem);  // kSmemH: this block's rows of H
+  float* ring = Hs + (kSmemH ? tri : 0);                  // kOtStages outside planes
+  int* ys = reinterpret_cast<int*>(ring + kOtStages * tri);
+  float* merge_v = reinterpret_cast<float*>(ys + P);  // [rank]: the blocks' argmaxes, in rank 0
+  int* merge_i = reinterpret_cast<int*>(merge_v + kMaxCluster);
+
+  // Row k (owned by this block, k = r + li*N) of H: row[q] = H[k][q], q > k.
+  auto h_row = [&](int li, int k) -> float* {
+    return kSmemH ? Hs + tri_row_off(li, r, N, P) - (k + 1) : Hgb + (long long)k * P;
+  };
+  // The first row this block owns below... above j: the least li with k > j.
+  auto first_row = [&](int j) { return j < r ? 0 : (j - r) / N + 1; };
+
+  for (int i = tid; i < P; i += kThreads) ys[i] = y[(long long)b * P + i];
+  // H init of the rows this block owns: column `end` holds inside(k, end)
+  // for k < end, -inf elsewhere; K's rows all -1.
+  for (int li = 0, k = r; k < P; ++li, k += N) {
+    float* row = h_row(li, k);
+    for (int q = k + 1 + tid; q < P; q += kThreads)
+      row[q] = (q == end && k < end) ? INb[(long long)k * P + end] : neg;
+    for (int q = tid; q < P; q += kThreads) Kb[(long long)k * P + q] = -1;
+  }
+
+  // Starts the copies of plane j's live rows that this block owns (rows
+  // j < k < end with !small(j, k), columns k < q <= end) into ring stage
+  // j % kOtStages, each by the thread that reads it at step j; one commit
+  // group per plane, empty past plane 0.
+  auto fetch = [&](int j) {
+    if (j >= 0) {
+      float* st = ring + (j % kOtStages) * tri;
+      const float* O = OTb + (long long)j * PP;
+      for (int li = first_row(j) + warp, k = r + li * N; k < end; li += kWarps, k += kWarps * N) {
+        if (ys[k] - ys[j] < kMinSegLen) continue;
+        float* dst = st + tri_row_off(li, r, N, P) - (k + 1);
+        for (int q = k + 1 + lane; q <= end; q += 32) cp_async_4(dst + q, O + (long long)k * P + q);
+      }
+    }
+    cp_async_commit();
+  };
+
+  cluster_sync();  // every block's rows and ys initialised before any step writes to them
+  fetch(P - 2);
+  for (int j = P - 2; j >= 0; --j) {
+    fetch(j - 1);  // the next step's plane, in flight during this one
+    cp_async_wait<kOtStages - 1>();  // this thread's copies of plane j have landed
+    const float* st = ring + (j % kOtStages) * tri;
+    for (int li = first_row(j) + warp, k = r + li * N; k < end; li += kWarps, k += kWarps * N) {
+      if (ys[k] - ys[j] < kMinSegLen) continue;  // small(j, k): row invalid
+      const float* O = st + tri_row_off(li, r, N, P) - (k + 1);
+      const float* Hr = h_row(li, k);
+      float bv = neg;
+      int bi = P;
+      for (int q = k + 1 + lane; q <= end; q += 32) {
+        if (ys[q] - ys[k] < kMinSegLen) continue;  // small(k, k_)
+        const float v = O[q] + Hr[q];
+        if (v > bv) {
+          bv = v;
+          bi = q;
+        }
+      }
+      warp_argmax(bv, bi);
+      if (lane == 0 && bv > neg) {
+        const float h = INb[(long long)j * P + k] + bv;
+        const int owner = j % N;
+        if (kSmemH)
+          cluster_map(Hs, owner)[tri_row_off(j / N, owner, N, P) + (k - j - 1)] = h;
+        else
+          Hgb[(long long)j * P + k] = h;
+        Kb[(long long)j * P + k] = bi;
+      }
+    }
+    cluster_sync();  // step j's writes before step j-1's reads; the stage is free again
+  }
+
+  // Top level over the rows this block owns: D0[j][k] = inside(0,j) +
+  // outside(0,j,k) + H[j][k] over 0 < j < end, j < k <= end, !small(0,j),
+  // !small(j,k); the first argmax in row-major order.
+  float bv = neg;
+  int bi = P * P;
+  for (int li = 0, jj = r; jj < end; ++li, jj += N) {
+    if (jj == 0 || ys[jj] - ys[0] < kMinSegLen) continue;
+    const float* Hr = h_row(li, jj);
+    for (int kk = jj + 1 + tid; kk <= end; kk += kThreads) {
+      if (ys[kk] - ys[jj] < kMinSegLen) continue;
+      const int idx = jj * P + kk;
+      argmax_merge(bv, bi, (INb[jj] + OTb[idx]) + Hr[kk], idx);
+    }
+  }
+  warp_argmax(bv, bi);
+  if (lane == 0) {
+    wred_v[warp] = bv;
+    wred_i[warp] = bi;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    for (int w = 1; w < kWarps; ++w) argmax_merge(bv, bi, wred_v[w], wred_i[w]);
+    cluster_map(merge_v, 0)[r] = bv;
+    cluster_map(merge_i, 0)[r] = bi;
+  }
+  // The last access of any block to another's shared memory is above:
+  // after this barrier every block may exit.
+  cluster_sync();
+  if (r != 0 || tid != 0) return;
+  bv = merge_v[0];
+  bi = merge_i[0];
+  for (int s = 1; s < N; ++s) argmax_merge(bv, bi, merge_v[s], merge_i[s]);
+  const bool ok = bv > INb[end];  // baseline: inside(0, end)
+  const int bj = ok ? bi / P : -1;
+  const int bk = ok ? bi - (bi / P) * P : -1;
+  best_j[b] = bj;
+  best_k[b] = bk;
+  Kb[(P - 1) * P] = bj;
+  if (P > 1) Kb[(P - 1) * P + 1] = bk;
+  int* chain = chains + (long long)b * (P + 2);
+  chain[0] = bj;
+  chain[1] = bk;
+  int j = bj, kk = bk;
+  bool alive = ok;
+  for (int i = 0; i < P; ++i) {
+    int nxt = -1;
+    if (alive) {
+      nxt = Kb[(long long)j * P + kk];
+      alive = nxt >= 0;
+    }
+    chain[2 + i] = alive ? nxt : -1;
+    if (alive) {
+      j = kk;
+      kk = nxt;
+    }
+  }
+}
+
+// The wavefront's latency floor: `steps` rounds of the cluster barrier
+// and nothing else, on clusters of N blocks (grid N*B, cluster (N)).
+__global__ void __launch_bounds__(kThreads) cluster_barrier_kernel(int steps) {
+  for (int s = 0; s < steps; ++s) cluster_sync();
 }
 
 // K2, grid (G) with G <= B, kPipeThreads threads: threads below

@@ -384,7 +384,9 @@ def dispatch_batch_device(
     split over exactly those, whatever its size (one device may be listed
     several times). Every padded P is launched: above what a block's
     shared memory holds, the kernel keeps its wavefront's H in device
-    memory (``ops.segdp_cuda``)."""
+    memory (``ops.segdp_cuda``). On a card a bucket from
+    ``segdp_cuda.CLUSTER_MIN_P`` pads B to the next power of two from 1,
+    not from 8, and ignores ``pad_b_to``."""
     from ..parallel import mesh
 
     if not problems:
@@ -404,12 +406,23 @@ def dispatch_batch_device(
     R = rnd(max(problems[i].C.shape[1] for i in work), pad_r_to)
     # Power-of-two batch (and pad_b_to for a bucket's final partial
     # chunk): the same small, stable set of batch shapes as the JAX
-    # path. Padding rows replicate problem 0; their outputs are unused.
+    # path, from 8 up, its TPU's row tiling. Padding rows replicate
+    # problem 0; their outputs are unused. The card's kernels key nothing
+    # on B, and a wide bucket (K1's cluster wavefront, from
+    # segdp_cuda.CLUSTER_MIN_P) pays a (P, P, P) scratch plane and a
+    # cluster for every row, so there the batch pads from 1 and only to
+    # the next power of two.
+    from . import segdp_cuda
+
     B = len(work)
-    B_pad = 8
+    on_card = (all(torch.device(d).type == "cuda" for d in devices) if devices is not None
+               else torch.device(device).type == "cuda")
+    wide = on_card and P >= segdp_cuda.CLUSTER_MIN_P
+    B_pad = 1 if wide else 8
     while B_pad < B:
         B_pad <<= 1
-    B_pad = max(B_pad, pad_b_to)
+    if not wide:
+        B_pad = max(B_pad, pad_b_to)
     if devices is None:
         devices = mesh.devices_for(device, B_pad * P**3 * R)
     else:

@@ -14,10 +14,15 @@ bounds each on the H100 in ``csrc/segdp_kernels.cuh``):
   stages of ``REP_STAGE`` with zero weights), written to the (P, P, P)
   outside tensor in global memory because it cannot fit one SM's shared
   memory as it fit the TPU's VMEM; then phases 2-3, the backward
-  wavefront (P strictly dependent steps), on one block per problem with
-  H in shared memory up to ``K1_SMEM_MAX_P`` and in device memory above
-  it, which ends by walking each problem's breakpoint chain
-  (``with_chains``), so the dispatch launches nothing after it.
+  wavefront (P strictly dependent steps), which ends by walking each
+  problem's breakpoint chain (``with_chains``), so the dispatch launches
+  nothing after it. The wavefront runs by shape: below ``CLUSTER_MIN_P``
+  on one block per problem with H in its shared memory; from there on a
+  thread-block cluster of N = 16 or 8 blocks per problem
+  (``cluster_size_for``: 16 where the batch's clusters all fit at once),
+  each block owning every N-th row of H in its shared memory (up to
+  ``cluster_smem_max_p(N)``, in device memory above) and streaming its
+  rows of the outside planes into shared memory a step ahead.
 - K2 (``pipelined=True``; replaces ``segdp_pallas.py:_kernel_pipelined``):
   one persistent, warp-specialised launch of as many blocks as the card
   holds at once (two of 12 warps per SM at P <= 64, one above). In each
@@ -32,8 +37,10 @@ bounds each on the H100 in ``csrc/segdp_kernels.cuh``):
   memory holds the phase-1 slots beside H up to ``K2_SMEM_MAX_P``; above
   it each block's H is a plane of its own in device memory.
 
-Both kernels take every P whose scratch fits the card. The scratch --
-the (P, P, P) outside tensor, inside and, above the shared-memory cap, H
+Both kernels take every P whose scratch fits the card (K1 up to
+``cluster_max_p``, where its ring of outside planes still fits a
+block). The scratch -- the (P, P, P) outside tensor, inside and, above
+the shared-memory cap, H
 -- is held for a group of problems (K1) or blocks (K2) at once, as many
 as ``SCRATCH_BUDGET`` allows and at least one (``group_size``); K1
 solves a batch group by group on one set of scratch buffers.
@@ -50,6 +57,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 import math
 
 import torch
@@ -59,9 +67,11 @@ from .segdp import _solve_batch_torch, _walk_chains, threshold_products
 
 # Kernel launches made through solve_batch_cuda, one per solved batch:
 # K1's (its two launches, over every group of the batch, count once) and
-# K2's; and of those, the ones whose wavefront held H in device memory.
+# K2's; of K1's, the ones whose wavefront ran on clusters; and of both,
+# the ones whose wavefront held H in device memory.
 LAUNCHES = 0
 PIPELINED_LAUNCHES = 0
+CLUSTER_LAUNCHES = 0
 DEVICE_H_LAUNCHES = 0
 PIPELINED_DEVICE_H_LAUNCHES = 0
 # The (B, P, R) of K1's latest launches as the caller gave them, oldest
@@ -76,12 +86,66 @@ _MAX_SMEM = _BLOCK_SMEM - 256  # less the wavefront's static reduction scratch
 # memory): SMs, blocks an SM holds at once, registers per thread, shared
 # memory per block.
 _PIPE_BLOCKS: dict[tuple[int, int, bool], tuple[int, int, int, int]] = {}
+# The same for K1's cluster wavefront, by (device index, P, N, H in shared
+# memory): clusters resident at once, shared memory per block, registers.
+_CLUSTER_OCC: dict[tuple[int, int, int, bool], tuple[int, int, int]] = {}
 
-# The widest problem whose wavefront keeps H in K1's shared memory (240):
-# H (4 P^2 B) and ys (4 P B) fit _MAX_SMEM up to here, 4 P^2 + 4 P =
-# (2 P + 1)^2 - 1. Above it (the dispatch's P = 256 bucket and wider) H is
-# in device memory.
+# The widest problem K1's one-block wavefront (wavefront_kernel) takes
+# (240): H (4 P^2 B) and ys (4 P B) fit _MAX_SMEM up to here, 4 P^2 + 4 P
+# = (2 P + 1)^2 - 1.
 K1_SMEM_MAX_P = (math.isqrt(_MAX_SMEM + 1) - 1) // 2
+
+# K1's wavefront runs on thread-block clusters from this width on, and on
+# one block per problem below it: narrow buckets come in batches that fill
+# the card one block each, wide ones in batches of a few problems.
+CLUSTER_MIN_P = 96
+# Blocks per cluster: WIDE_CLUSTER_SIZE (16, past the portable 8) when the
+# clusters of every problem of the batch fit the card at once, as the
+# runtime reports it (cluster_size_for), else CLUSTER_SIZE. On one H100
+# the wavefront's launch on 16 blocks took less device time than on 8 at
+# every (P, B) of chip_smoke's sweep whose clusters of 16 were all
+# resident, and more where they were not (B = 64 at P = 128, B = 128 at
+# P = 96; 35 clusters of 16 fit at those P).
+CLUSTER_SIZE = 8
+WIDE_CLUSTER_SIZE = 16
+MAX_CLUSTER = 16  # kMaxCluster in the .cuh
+OT_STAGES = 2  # kOtStages: outside planes in each block's ring
+
+
+def _tri_floats(P: int, N: int) -> int:
+    """Floats of the packed triangle of rows that rank 0 of an N-block
+    cluster owns at width P (tri_floats in the .cuh): rows k = 0, N, 2N, ...
+    with columns k+1..P-1 each."""
+    rows = (P - 1) // N + 1
+    return rows * (P - 1) - N * rows * (rows - 1) // 2
+
+
+def cluster_smem_bytes(P: int, N: int, smem_h: bool) -> int:
+    """Dynamic shared memory of a block of K1's cluster wavefront
+    (cluster_smem_bytes in the .cuh): H's triangle when it lives there,
+    OT_STAGES triangles of outside planes, ys and the argmax slots."""
+    return 4 * ((1 if smem_h else 0) + OT_STAGES) * _tri_floats(P, N) + 4 * P + 8 * MAX_CLUSTER
+
+
+@functools.cache
+def _widest(N: int, smem_h: bool) -> int:
+    """The widest P whose cluster_smem_bytes fit a block."""
+    P = 1
+    while cluster_smem_bytes(P + 1, N, smem_h) <= _MAX_SMEM:
+        P += 1
+    return P
+
+
+def cluster_smem_max_p(N: int | None = None) -> int:
+    """The widest P whose H stays in the shared memory of an N-block
+    cluster (default ``CLUSTER_SIZE``) beside the ring of outside planes."""
+    return _widest(N or CLUSTER_SIZE, True)
+
+
+def cluster_max_p(N: int | None = None) -> int:
+    """The widest P K1's cluster wavefront takes on N blocks at all: the
+    ring of outside planes alone fits a block (H in device memory)."""
+    return _widest(N or CLUSTER_SIZE, False)
 
 # The same for K2 (176), whose block holds the phase-1 slots beside H:
 # PairSmem<128> (sizeof in the .cuh), H, ys and 16 B of hand-off state.
@@ -96,10 +160,14 @@ SCRATCH_BUDGET = 4 << 30
 def scratch_bytes(P: int, pipelined: bool = False, smem_max_p: int | None = None) -> int:
     """Scratch of one K1 problem or one K2 block at width P: the outside
     tensor (P^3 f32; K2 has two slots), inside (P^2; two) and, when P is
-    above the shared-memory cap, H (P^2)."""
-    cap = _cap(pipelined, smem_max_p)
+    above the shared-memory cap (K1: its cluster wavefront's at
+    ``CLUSTER_SIZE``), H (P^2)."""
+    return _unit_bytes(P, pipelined, P > _cap(pipelined, smem_max_p))
+
+
+def _unit_bytes(P: int, pipelined: bool, device_h: bool) -> int:
     slots = 2 if pipelined else 1
-    return 4 * (slots * (P**3 + P**2) + (P * P if P > cap else 0))
+    return 4 * (slots * (P**3 + P**2) + (P * P if device_h else 0))
 
 
 def group_size(n: int, P: int, pipelined: bool = False, smem_max_p: int | None = None,
@@ -107,14 +175,19 @@ def group_size(n: int, P: int, pipelined: bool = False, smem_max_p: int | None =
     """How many of ``n`` K1 problems (or K2 blocks) keep their scratch at
     once: the most whose ``scratch_bytes`` fit ``budget`` (default
     ``SCRATCH_BUDGET``), never fewer than one."""
+    return _fit(n, scratch_bytes(P, pipelined, smem_max_p), budget)
+
+
+def _fit(n: int, unit: int, budget: int | None = None) -> int:
     budget = SCRATCH_BUDGET if budget is None else budget
-    return max(1, min(n, budget // scratch_bytes(P, pipelined, smem_max_p)))
+    return max(1, min(n, budget // unit))
 
 
-def _cap(pipelined: bool, smem_max_p: int | None) -> int:
-    """The widest P whose H stays in shared memory: the kernel's own limit,
+def _cap(pipelined: bool, smem_max_p: int | None, N: int | None = None) -> int:
+    """The widest P whose H stays in shared memory: the kernel's own limit
+    (K1: its cluster wavefront's on N blocks, default ``CLUSTER_SIZE``),
     or a lower cap the caller gives (0 puts H in device memory at any P)."""
-    top = K2_SMEM_MAX_P if pipelined else K1_SMEM_MAX_P
+    top = K2_SMEM_MAX_P if pipelined else cluster_smem_max_p(N)
     if smem_max_p is None:
         return top
     if not 0 <= smem_max_p <= top:
@@ -126,7 +199,7 @@ def _lib() -> ctypes.CDLL:
     """The built library with its C signatures declared (pointers and the
     stream as void*, so ctypes never truncates them to 32 bits)."""
     lib = load_library("segdp").lib
-    lib.segdp_solve.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 5 + [
+    lib.segdp_solve.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p
     ]
     lib.segdp_solve.restype = ctypes.c_int
@@ -136,6 +209,10 @@ def _lib() -> ctypes.CDLL:
     lib.segdp_solve_pipelined.restype = ctypes.c_int
     lib.segdp_pipelined_occupancy.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.segdp_pipelined_occupancy.restype = ctypes.c_int
+    lib.segdp_cluster_occupancy.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.segdp_cluster_occupancy.restype = ctypes.c_int
+    lib.segdp_cluster_barrier_probe.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.segdp_cluster_barrier_probe.restype = ctypes.c_int
     lib.segdp_error_string.argtypes = [ctypes.c_int]
     lib.segdp_error_string.restype = ctypes.c_char_p
     return lib
@@ -176,6 +253,35 @@ def pipelined_occupancy(P: int, smem_max_p: int | None = None) -> dict[str, int]
     return dict(zip(("sms", "blocks_per_sm", "registers", "smem_bytes"), _PIPE_BLOCKS[key]))
 
 
+def cluster_occupancy(P: int, N: int | None = None, smem_max_p: int | None = None
+                      ) -> dict[str, int]:
+    """What the runtime reports for K1's cluster wavefront at width P on
+    clusters of N blocks (default ``CLUSTER_SIZE``) on the current device,
+    H in shared memory up to the cap: ``max_active_clusters``
+    (cudaOccupancyMaxActiveClusters), ``smem_bytes`` per block (static +
+    dynamic) and ``registers`` per thread. Queried once per (device, P, N,
+    home of H)."""
+    N = N or CLUSTER_SIZE
+    smem_h = P <= _cap(False, smem_max_p, N)
+    key = (torch.cuda.current_device(), P, N, smem_h)
+    if key not in _CLUSTER_OCC:
+        lib = _lib()
+        out = (ctypes.c_int * 3)()
+        _raise_on(lib, lib.segdp_cluster_occupancy(P, N, int(smem_h), ctypes.addressof(out)),
+                  "K1 cluster occupancy query")
+        _CLUSTER_OCC[key] = tuple(out)
+    return dict(zip(("max_active_clusters", "smem_bytes", "registers"), _CLUSTER_OCC[key]))
+
+
+def cluster_barrier_probe(B: int, N: int, steps: int) -> None:
+    """Launches ``steps`` rounds of the cluster barrier alone on B
+    clusters of N blocks on the current stream: what chip_smoke times as
+    the cluster wavefront's latency floor at P = steps + 1."""
+    lib = _lib()
+    _raise_on(lib, lib.segdp_cluster_barrier_probe(
+        B, N, steps, torch.cuda.current_stream().cuda_stream), "cluster barrier probe")
+
+
 def pipelined_grid(B: int, P: int, smem_max_p: int | None = None) -> int:
     """K2's number of blocks for B problems at width P on the current
     device: as many as the card holds at once and as ``SCRATCH_BUDGET``
@@ -197,7 +303,7 @@ def _scratch(n: int, P: int, pipelined: bool, cap: int, dev):
                        torch.empty((n,) + s, dtype=torch.float32, device=dev) for s in shapes]
         except torch.cuda.OutOfMemoryError as e:
             if n == 1:
-                need = scratch_bytes(P, pipelined, cap)
+                need = _unit_bytes(P, pipelined, P > cap)
                 raise ValueError(f"P={P}: one {'K2 block' if pipelined else 'problem'}'s "
                                  f"scratch needs {need} B ({need / 2**20:.0f} MiB) of "
                                  "device memory; the card does not have it free") from e
@@ -228,8 +334,52 @@ def kernel_inputs(C, y, W, lookup, scale):
     return Cs, T_hi, T_lo, Wi, w_sum, w_max
 
 
+def cluster_size_for(B: int, P: int, smem_max_p: int | None = None) -> int:
+    """The blocks per cluster of K1's wavefront for B problems at width P
+    on the current device: WIDE_CLUSTER_SIZE when the kernel takes P on
+    that many blocks and the runtime can keep B such clusters resident at
+    once (cudaOccupancyMaxActiveClusters), else CLUSTER_SIZE."""
+    N = WIDE_CLUSTER_SIZE
+    if P <= cluster_max_p(N) and (smem_max_p is None or smem_max_p <= cluster_smem_max_p(N)) \
+            and cluster_occupancy(P, N, smem_max_p)["max_active_clusters"] >= B:
+        return N
+    return CLUSTER_SIZE
+
+
+def _k1_route(P: int, smem_max_p: int | None, cluster_size: int | None,
+              wide_size=lambda: CLUSTER_SIZE) -> tuple[int, int]:
+    """K1's wavefront at width P: (N, cap), N the blocks per cluster (0:
+    the one-block wavefront) and cap the widest P whose H stays in shared
+    memory. By shape unless ``cluster_size`` forces a route: from
+    ``CLUSTER_MIN_P`` on (or where H has to be in device memory) the
+    cluster kernel on ``wide_size()`` blocks (solve_batch_cuda passes
+    cluster_size_for), below it the one-block kernel; ``cluster_size`` 0
+    takes the one-block kernel, N >= 1 the cluster kernel on N blocks, at
+    any P either takes."""
+    if cluster_size is None:
+        if P < CLUSTER_MIN_P and P <= _cap(False, smem_max_p):
+            return 0, _cap(False, smem_max_p)
+        N = wide_size()
+        cap = _cap(False, smem_max_p, N)
+    elif cluster_size == 0:
+        cap = K1_SMEM_MAX_P if smem_max_p is None else smem_max_p
+        if P > min(cap, K1_SMEM_MAX_P):
+            raise ValueError(f"P={P}: the one-block wavefront keeps H in shared memory, which "
+                             f"holds it up to P={K1_SMEM_MAX_P} (cap {cap})")
+        return 0, cap
+    elif 1 <= cluster_size <= MAX_CLUSTER:
+        N = cluster_size
+        cap = _cap(False, smem_max_p, N)
+    else:
+        raise ValueError(f"cluster_size={cluster_size}: 0 or 1..{MAX_CLUSTER}")
+    if P > cluster_max_p(N):
+        raise ValueError(f"P={P}: K1's cluster wavefront on {N} blocks takes P up to "
+                         f"{cluster_max_p(N)} (its ring of outside planes must fit a block)")
+    return N, cap
+
+
 def solve_batch_cuda(C, y, W, n_cand, read_support, lookup, scale, pipelined=False,
-                     with_chains=False, smem_max_p=None):
+                     with_chains=False, smem_max_p=None, cluster_size=None):
     """Same contract as ``ops.segdp._solve_batch_torch`` and
     ``freddie_tpu``'s ``solve_batch_pallas``: C (B, P, R) int32, y (B, P)
     int32, W (B, R) f32 integer-valued, n_cand (B,) int32, lookup (L+1,)
@@ -238,13 +388,21 @@ def solve_batch_cuda(C, y, W, n_cand, read_support, lookup, scale, pipelined=Fal
     (K1 splits wide weights into limbs itself), so they take no
     ``wide_weights`` flag. ``with_chains`` appends the (B, P+2)
     -1-terminated breakpoint chains to the result: both kernels walk them
-    themselves; the CPU route takes ``_walk_chains``. Every P is taken:
-    the wavefront keeps H in shared memory up to ``smem_max_p`` (default:
-    the widest that fits, ``K1_SMEM_MAX_P`` / ``K2_SMEM_MAX_P``; a lower
-    cap, 0 included, puts H in device memory, which is how the tests reach
-    that route at small P) and in device memory above. Raises ValueError
-    only when one problem's scratch cannot be allocated."""
-    global LAUNCHES, PIPELINED_LAUNCHES, DEVICE_H_LAUNCHES, PIPELINED_DEVICE_H_LAUNCHES
+    themselves; the CPU route takes ``_walk_chains``. K1's wavefront runs
+    by shape (``CLUSTER_MIN_P``; the cluster's size by
+    ``cluster_size_for``); ``cluster_size`` forces a route (0: one block
+    per problem; N: clusters of N blocks, which is how the tests reach the
+    cluster kernel at small P). The wavefront keeps H in shared
+    memory up to ``smem_max_p`` (default: the widest that fits,
+    ``cluster_smem_max_p()`` for K1's clusters, ``K1_SMEM_MAX_P`` for its
+    one block, ``K2_SMEM_MAX_P`` for K2; a lower cap, 0 included, puts H
+    in device memory, K1's on the cluster route) and in device memory
+    above. Raises ValueError when one problem's scratch cannot be
+    allocated, or when P is past what K1's cluster kernel takes
+    (``cluster_max_p``); a launch the runtime refuses raises
+    RuntimeError."""
+    global LAUNCHES, PIPELINED_LAUNCHES, CLUSTER_LAUNCHES, DEVICE_H_LAUNCHES
+    global PIPELINED_DEVICE_H_LAUNCHES
     if C.device.type == "cpu":
         res = _solve_batch_torch(C, y, W, n_cand, read_support, lookup, scale)
         return res + (_walk_chains(*res),) if with_chains else res
@@ -261,7 +419,13 @@ def solve_batch_cuda(C, y, W, n_cand, read_support, lookup, scale, pipelined=Fal
         raise ValueError(f"batch of {B} problems: the kernels take 1..65535")
     if not 0 <= int(read_support) < 2**31:
         raise ValueError(f"read_support {read_support} out of int32 range")
-    cap = _cap(pipelined, smem_max_p)
+    if pipelined:
+        if cluster_size is not None:
+            raise ValueError("cluster_size is K1's: K2 runs its wavefront in its own blocks")
+        N, cap = 0, _cap(True, smem_max_p)
+    else:
+        N, cap = _k1_route(P, smem_max_p, cluster_size,
+                           lambda: cluster_size_for(B, P, smem_max_p))
     lib = _lib()
 
     Cs, T_hi, T_lo, Wi, w_sum, w_max = kernel_inputs(C, y, W, lookup, scale)
@@ -289,7 +453,8 @@ def solve_batch_cuda(C, y, W, n_cand, read_support, lookup, scale, pipelined=Fal
         else:
             # Group by group on one set of scratch buffers; the stream
             # orders a group's launches after the previous group's.
-            g, (OT, INS, H) = _scratch(group_size(B, P, False, cap), P, False, cap, dev)
+            g, (OT, INS, H) = _scratch(_fit(B, _unit_bytes(P, False, P > cap)), P, False, cap,
+                                       dev)
             err = 0
             for b0 in range(0, B, g):
                 part = slice(b0, min(B, b0 + g))
@@ -299,7 +464,7 @@ def solve_batch_cuda(C, y, W, n_cand, read_support, lookup, scale, pipelined=Fal
                     y[part].data_ptr(), n_cand[part].data_ptr(), OT.data_ptr(),
                     INS.data_ptr(), ptr(H), K[part].data_ptr(), best_j[part].data_ptr(),
                     best_k[part].data_ptr(), chains[part].data_ptr(),
-                    part.stop - b0, P, R, int(read_support), cap, stream,
+                    part.stop - b0, P, R, int(read_support), cap, N, stream,
                 )
                 if err:
                     break
@@ -309,6 +474,7 @@ def solve_batch_cuda(C, y, W, n_cand, read_support, lookup, scale, pipelined=Fal
         PIPELINED_DEVICE_H_LAUNCHES += P > cap
     else:
         LAUNCHES += 1
+        CLUSTER_LAUNCHES += N > 0
         DEVICE_H_LAUNCHES += P > cap
         LAUNCH_SHAPES.append((B, P, C.shape[2]))
     return (K, best_j, best_k, chains) if with_chains else (K, best_j, best_k)

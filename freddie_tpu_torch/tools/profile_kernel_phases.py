@@ -6,9 +6,10 @@ At the shape given (default: the kernel benchmark's 2048,64,512), from
 ``torch.profiler`` and CUDA events:
 
 - K1 by phase: its pair-statistics launch, its wavefront launch (which
-  also walks the chains; with H in device memory above P = 240), and
-  what is left of the whole ``solve_batch_cuda`` call, the wrapper's
-  torch prologue;
+  also walks the chains; on thread-block clusters from
+  ``segdp_cuda.CLUSTER_MIN_P``, ``wavefront_cluster_kernel``), and what
+  is left of the whole ``solve_batch_cuda`` call, the wrapper's torch
+  prologue;
 - K2 (at every P: above K2_SMEM_MAX_P its H is in device memory): its
   one launch's device time beside the whole call, what the runtime
   reports for it (blocks per SM, registers, shared memory, grid), and
@@ -32,7 +33,7 @@ from ..device import resolve_device
 from ..ops import segdp_cuda
 from ..ops.segdp import ScaledThresholds, to_device
 
-KERNELS = ("pair_stats_kernel", "wavefront_kernel", "wavefront_gmem_kernel",
+KERNELS = ("pair_stats_kernel", "wavefront_kernel", "wavefront_cluster_kernel",
            "segdp_pipelined_kernel")
 
 
@@ -103,9 +104,9 @@ def profile_shape(dev, shape, log=print) -> dict:
     args = batch_args(dev, shape)
     k1_call = time_ms(lambda: segdp_cuda.solve_batch_cuda(*args))
     k1 = device_ms_by_kernel([lambda: segdp_cuda.solve_batch_cuda(*args)])
-    # The wavefront launch is wavefront_gmem_kernel where H is in device memory.
+    # The wavefront launch is wavefront_cluster_kernel from CLUSTER_MIN_P on.
     pair = k1.get("pair_stats_kernel")
-    wave = k1.get("wavefront_kernel", k1.get("wavefront_gmem_kernel"))
+    wave = k1.get("wavefront_kernel", k1.get("wavefront_cluster_kernel"))
     out = dict(shape=list(shape), card=card, k1_call_ms=k1_call, k1_pair_stats_ms=pair,
                k1_wavefront_ms=wave,
                k1_prologue_ms=None if pair is None or wave is None else k1_call - pair - wave)

@@ -10,6 +10,14 @@
 // per-warp slots between two warp barriers, and so do the fragments of the
 // tensor-core step (mma_m16n8k32_s8); cp.async copies at once.
 //
+// Thread-block clusters: emu_launch(..., cluster = N) runs the N blocks
+// of each cluster (consecutive blockIdx.x) at once, group c holding rank
+// c; cluster_sync is one std::barrier over every thread of the cluster;
+// cluster_map maps a pointer into the block's dynamic shared memory to
+// the same offset in rank r's. A block's dynamic shared memory is filled
+// with garbage again when it exits, so that a block that reads or writes
+// another's after that one has gone on shows.
+//
 // emu_launch runs `concurrent` blocks of a launch at once, each a group of
 // threads with a state of its own (EmuBlock: its barriers, its warps'
 // exchange slots, its shared memory); a group takes the blocks c, c + C,
@@ -40,6 +48,7 @@
 
 #define __global__
 #define __device__
+#define __host__
 #define __forceinline__ inline
 #define __restrict__ __restrict
 #define __launch_bounds__(...)
@@ -126,6 +135,29 @@ void reg_release() {}
 template <int N>
 void reg_take() {}
 
+// Clusters: the launch's blocks per cluster, each rank's state, and the
+// barrier of all their threads.
+inline int emu_cluster = 1;
+inline std::vector<EmuBlock*> emu_cluster_blocks;
+inline std::unique_ptr<std::barrier<>> emu_cluster_bar;
+
+inline int cluster_rank() { return (int)(blockIdx.x % emu_cluster); }
+inline int cluster_nblocks() { return emu_cluster; }
+inline void cluster_sync() { emu_cluster_bar->arrive_and_wait(); }
+
+// mapa: p, which points into this block's dynamic shared memory, at the
+// same offset in rank `rank`'s.
+template <class T>
+T* cluster_map(T* p, int rank) {
+  const auto* c = reinterpret_cast<const unsigned char*>(p);
+  const long off = c - emu_dyn_smem;
+  if (off < 0 || off >= (long)sizeof(EmuBlock::dyn_smem) || rank < 0 || rank >= emu_cluster) {
+    std::fprintf(stderr, "cluster_map: offset %ld, rank %d out of range\n", off, rank);
+    std::abort();
+  }
+  return reinterpret_cast<T*>(emu_cluster_blocks[rank]->dyn_smem + off);
+}
+
 // atomicAdd on an int in global memory: the old value.
 inline int atomicAdd(int* p, int v) { return std::atomic_ref<int>(*p).fetch_add(v); }
 
@@ -146,7 +178,16 @@ T __shfl_xor_sync(unsigned, T v, int lane_mask) {
 
 // cp.async: the copy is done at once, so groups have nothing to wait for.
 inline void cp_async_8(void* smem, const void* gmem) { std::memcpy(smem, gmem, 8); }
-inline void cp_async_commit() {}
+inline void cp_async_4(void* smem, const void* gmem) { std::memcpy(smem, gmem, 4); }
+// EMU_CLUSTER_SKEW=us: at each commit of asynchronous copies (once a step
+// in the cluster wavefront), a thread of cluster rank r sleeps r*us
+// microseconds, so that the ranks drift apart wherever no barrier holds
+// them together. Read at each launch.
+inline int emu_cluster_skew_us = 0;
+inline void cp_async_commit() {
+  if (emu_cluster > 1 && emu_cluster_skew_us > 0)
+    std::this_thread::sleep_for(std::chrono::microseconds(cluster_rank() * emu_cluster_skew_us));
+}
 template <int N>
 void cp_async_wait() {}
 
@@ -182,13 +223,25 @@ inline void mma_m16n8k32_s8(int (&d)[4], const unsigned (&a)[4], const unsigned 
 // Runs body() as every thread of every block of `grid`, `concurrent`
 // blocks at once: one std::thread per CUDA thread of each group for the
 // whole launch, with a block barrier before and after each block while
-// thread 0 sets it up.
+// thread 0 sets it up. With `cluster` > 1 the launch runs in clusters of
+// that many blocks (grid.x a multiple of it), all at once.
 template <class F>
-void emu_launch(dim3 grid, int threads, F body, int concurrent = 1) {
+void emu_launch(dim3 grid, int threads, F body, int concurrent = 1, int cluster = 1) {
+  if (cluster > 1) {
+    if (grid.x % cluster != 0 || grid.y != 1) {
+      std::fprintf(stderr, "emu_launch: grid %u is not made of clusters of %d\n", grid.x, cluster);
+      std::abort();
+    }
+    concurrent = cluster;
+  }
+  emu_cluster = cluster;
+  emu_cluster_bar = std::make_unique<std::barrier<>>((std::ptrdiff_t)cluster * threads);
+  emu_cluster_blocks.clear();
   gridDim = grid;
   blockDim = dim3(threads);
   if (const char* stall = std::getenv("EMU_STALL"))
     std::sscanf(stall, "%d:%d", &emu_stall_id, &emu_stall_ms);
+  if (const char* skew = std::getenv("EMU_CLUSTER_SKEW")) emu_cluster_skew_us = std::atoi(skew);
   const unsigned blocks = grid.x * grid.y;
   std::vector<std::unique_ptr<EmuBlock>> groups;
   std::vector<std::thread> ts;
@@ -196,6 +249,7 @@ void emu_launch(dim3 grid, int threads, F body, int concurrent = 1) {
   for (int c = 0; c < concurrent; ++c) {
     groups.push_back(std::make_unique<EmuBlock>());
     EmuBlock* blk = groups.back().get();
+    emu_cluster_blocks.push_back(blk);
     blk->bar = std::make_unique<std::barrier<>>(threads);
     for (int w = 0; w < threads / 32; ++w)
       blk->warps[w].bar = std::make_unique<std::barrier<>>(32);
@@ -210,6 +264,7 @@ void emu_launch(dim3 grid, int threads, F body, int concurrent = 1) {
           blk->bar->arrive_and_wait();
           body();
           blk->bar->arrive_and_wait();
+          if (t == 0) std::memset(blk->dyn_smem, 0xCD, sizeof(blk->dyn_smem));  // the block exited
         }
       });
     }

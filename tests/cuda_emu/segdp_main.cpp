@@ -1,13 +1,16 @@
 // Runs the segmentation-DP kernels under the CPU shim (emu.h) on a batch
 // read from raw int32 files in the working directory, and writes K,
 // best_j and best_k back (tests/test_torch_segdp_emulated.py): K1's two
-// launches, or with a grid size G, K2's one launch of G blocks, of which
-// `at_once` run concurrently (default 1: in turn). As in segdp.cu, the
-// wavefront keeps H in shared memory when P <= cap and in device memory
-// (a scratch vector here: K1's (B, P, P), K2's (G, P, P)) above; a cap of
-// 0 forces the device-memory route.
+// launches, its wavefront on one block a problem, or with "cN" on
+// clusters of N blocks (wavefront_cluster_kernel, the clusters in turn,
+// each cluster's blocks at once); or with a grid size G, K2's one launch
+// of G blocks, of which `at_once` run concurrently (default 1: in turn).
+// As in segdp.cu, the wavefront keeps H in shared memory when P <= cap and
+// in device memory (a scratch vector here: K1's (B, P, P), K2's (G, P,
+// P)) above; a cap of 0 forces the device-memory route (K1: the cluster
+// kernel's).
 //
-//   segdp_emu B P R read_support cap [G [at_once]]
+//   segdp_emu B P R read_support cap [cN | G [at_once]]
 //   in:  Cs.bin Thi.bin Tlo.bin W.bin wsum.bin wmax.bin y.bin n.bin
 //   out: K.bin bj.bin bk.bin chains.bin; K1's OT.bin and INS.bin (its
 //        scratch, of which only the live entries are defined); K2's
@@ -44,9 +47,13 @@ int main(int argc, char** argv) {
   const int B = std::atoi(argv[1]), P = std::atoi(argv[2]);
   const int R = std::atoi(argv[3]), rs = std::atoi(argv[4]);
   const bool smem_h = P <= std::atoi(argv[5]);
-  const int G = argc >= 7 ? std::atoi(argv[6]) : 0;  // 0: K1
+  const bool cluster = argc >= 7 && argv[6][0] == 'c';  // K1 on clusters of N blocks
+  const int N = cluster ? std::atoi(argv[6] + 1) : 0;
+  const int G = argc >= 7 && !cluster ? std::atoi(argv[6]) : 0;  // 0: K1
   const int at_once = argc == 8 ? std::atoi(argv[7]) : 1;
   if (G < 0 || G > B || at_once < 1 || at_once > (G ? G : 1)) return 2;
+  if (cluster && (N < 1 || N > segdp::kMaxCluster || argc != 7)) return 2;
+  if (!cluster && !smem_h && G == 0) return 2;  // K1's one-block wavefront keeps H in shared memory
   if (R % segdp::kMmaStage != 0) return 2;  // the wrapper pads the reps
   const size_t BP = (size_t)B * P, BPP = BP * P;
   auto Cs = load<int>("Cs.bin", BP * R);
@@ -72,14 +79,24 @@ int main(int argc, char** argv) {
                                                    n.data(), OT.data(), INS.data(), P, R, rs);
     });
     std::vector<float> H(smem_h ? 0 : BPP, 12345.f);
-    emu_launch(dim3(B), segdp::kThreads, [&] {
-      if (smem_h)
-        segdp::wavefront_kernel(OT.data(), INS.data(), y.data(), n.data(),
-                                K.data(), bj.data(), bk.data(), chains.data(), P);
-      else
-        segdp::wavefront_gmem_kernel(OT.data(), INS.data(), y.data(), n.data(), H.data(),
-                                     K.data(), bj.data(), bk.data(), chains.data(), P);
-    });
+    if (!cluster) {
+      emu_launch(dim3(B), segdp::kThreads, [&] {
+        segdp::wavefront_kernel(OT.data(), INS.data(), y.data(), n.data(), K.data(), bj.data(),
+                                bk.data(), chains.data(), P);
+      });
+    } else {
+      if (segdp::cluster_smem_bytes(P, N, smem_h) > (int)sizeof(EmuBlock::dyn_smem)) return 2;
+      emu_launch(dim3(N * B), segdp::kThreads, [&] {
+        if (smem_h)
+          segdp::wavefront_cluster_kernel<true>(OT.data(), INS.data(), y.data(), n.data(),
+                                                H.data(), K.data(), bj.data(), bk.data(),
+                                                chains.data(), P);
+        else
+          segdp::wavefront_cluster_kernel<false>(OT.data(), INS.data(), y.data(), n.data(),
+                                                 H.data(), K.data(), bj.data(), bk.data(),
+                                                 chains.data(), P);
+      }, 1, N);
+    }
     store("OT.bin", OT);
     store("INS.bin", INS);
   } else {

@@ -257,8 +257,60 @@ def test_wide_bucket_reaches_the_kernel_wrapper(monkeypatch, with_intervals):
                         lambda *a: routes.append("iv") or build(*a))
     got = tseg.solve_batch_device(problems, thr, pad_p_to=256, pad_r_to=16, device="cuda")
     assert got == want and any(want)
-    assert launched == [(8, 256, 16)]
+    # A wide bucket on a card pads its three problems to 4, not to 8.
+    assert launched == [(4, 256, 16)]
     assert routes == (["iv"] if with_intervals else [])
+
+
+def _simulated_card(monkeypatch):
+    """The mesh names the CPU for "cuda" (so the wrapper runs its plain
+    version on the CPU tensors it is handed) and solve_batch_cuda records
+    the (B, P, R) it is called with; returns that record."""
+    from freddie_tpu_torch.parallel import mesh
+
+    cpu = torch.device("cpu")
+    monkeypatch.setattr(mesh, "loci_devices", lambda: [cpu])
+    monkeypatch.setattr(mesh, "resolve_device", lambda _dev: cpu)
+    launched = []
+    real = mesh.solve_batch_cuda
+    monkeypatch.setattr(mesh, "solve_batch_cuda",
+                        lambda C, *a, **k: launched.append(tuple(C.shape)) or real(C, *a, **k))
+    return launched
+
+
+def test_wide_bucket_on_a_card_solves_only_its_real_problems(monkeypatch):
+    """On a (simulated) card a bucket from CLUSTER_MIN_P pads B to the next
+    power of two from 1: one problem of the P = 512 bucket reaches the
+    wrapper as B = 1, in one scratch group, and three of the P = 256 bucket
+    as B = 4 (the final partial chunk's pad_b_to is not applied there);
+    P = 64 keeps the JAX layout, B padded to 8. Every result equals the
+    JAX package's: its dispatch at P = 256 and 64, its host oracle at
+    P = 512 (its dispatch would pad that problem to 8 rows of 512^3 f32,
+    4 GiB, where the port's plain version holds one)."""
+    from freddie_tpu_torch.ops import segdp_cuda
+
+    rng = np.random.default_rng(512)
+    thr = ScaledThresholds(0.9)
+    launched = _simulated_card(monkeypatch)
+    assert segdp_cuda.CLUSTER_MIN_P <= 256
+    one = [random_problem(rng, 40, 10, span=8000)]
+    got = tseg.solve_batch_device(one, thr, pad_p_to=512, pad_r_to=16, device="cuda")
+    assert got == [jseg.solve_host(one[0], thr)] and got[0]
+    assert launched == [(1, 512, 16)] and segdp_cuda.group_size(1, 512) == 1
+
+    launched.clear()
+    three = [random_problem(rng, int(rng.integers(200, 251)), 12) for _ in range(3)]
+    handles, work, res = tseg.dispatch_batch_device(three, thr, pad_p_to=256, pad_r_to=16,
+                                                    pad_b_to=8, device="cuda")
+    got = tseg.collect_batch_device(handles, work, res)
+    assert got == jseg.solve_batch_device(three, thr, pad_p_to=256, pad_r_to=16)
+    assert launched == [(4, 256, 16)]
+
+    launched.clear()
+    narrow = [random_problem(rng, int(rng.integers(20, 60)), 12) for _ in range(3)]
+    got = tseg.solve_batch_device(narrow, thr, pad_p_to=64, pad_r_to=16, device="cuda")
+    assert got == jseg.solve_batch_device(narrow, thr, pad_p_to=64, pad_r_to=16)
+    assert launched == [(8, 64, 16)]
 
 
 def test_plain_matches_xla_at_p256():
@@ -306,14 +358,16 @@ def test_scratch_group_size(B, P, budget, pipelined, want):
 
 
 def test_scratch_bytes_count_h_only_above_the_cap():
-    """H is scratch in device memory only where it does not fit a block:
-    above K1_SMEM_MAX_P (K2: K2_SMEM_MAX_P), or at any P when the caller
+    """H is scratch in device memory only where it does not fit: above
+    what K1's cluster wavefront keeps in its blocks' shared memory
+    (cluster_smem_max_p; K2: K2_SMEM_MAX_P), or at any P when the caller
     forces the cap to 0; a cap above the kernel's own limit is refused."""
     from freddie_tpu_torch.ops import segdp_cuda
 
-    for pipelined, top in ((False, segdp_cuda.K1_SMEM_MAX_P), (True, segdp_cuda.K2_SMEM_MAX_P)):
+    for pipelined, top in ((False, segdp_cuda.cluster_smem_max_p()),
+                           (True, segdp_cuda.K2_SMEM_MAX_P)):
         slots = 2 if pipelined else 1
-        for P in (16, top, top + 1, 512):
+        for P in (16, top, top + 1, 512, 700):
             plain = 4 * slots * (P**3 + P**2)
             h = 4 * P * P
             assert segdp_cuda.scratch_bytes(P, pipelined) == plain + (h if P > top else 0)
@@ -323,9 +377,9 @@ def test_scratch_bytes_count_h_only_above_the_cap():
 
 
 def test_k1_max_p_is_the_widest_that_fits_a_block():
-    """K1_SMEM_MAX_P is the widest P whose wavefront state, 4 P^2 + 4 P
-    bytes, fits the shared memory the wrapper allows: the P = 224 bucket
-    keeps H in shared memory and the P = 256 bucket in device memory.
+    """K1_SMEM_MAX_P is the widest P whose one-block wavefront state,
+    4 P^2 + 4 P bytes, fits the shared memory the wrapper allows: that
+    kernel could take the P = 224 bucket and not the P = 256 one.
     K2_SMEM_MAX_P is the same beside K2's phase-1 slots (PairSmem<128>,
     107,520 B) and 16 B of hand-off state."""
     from freddie_tpu_torch.ops import segdp_cuda
@@ -338,3 +392,75 @@ def test_k1_max_p_is_the_widest_that_fits_a_block():
     assert pair + 4 * P2 * P2 + 4 * P2 + 16 <= segdp_cuda._MAX_SMEM
     assert pair + 4 * (P2 + 1) ** 2 + 4 * (P2 + 1) + 16 > segdp_cuda._MAX_SMEM
     assert P2 == 176
+
+
+@pytest.mark.parametrize("N", [1, 2, 4, 8, 16])
+def test_cluster_caps_are_the_widest_that_fit_a_block(N):
+    """cluster_smem_max_p(N) is the widest P whose triangle of H rows and
+    ring of two outside planes (rank 0's, the largest: rows 0, N, 2N, ...
+    with columns k+1..P-1), ys and the argmax slots fit a block;
+    cluster_max_p(N) the widest whose ring alone does. The triangle counts
+    what a direct sum over the rows counts, and at the default cluster size
+    the P = 512 bucket keeps H in shared memory."""
+    from freddie_tpu_torch.ops import segdp_cuda
+
+    for P in (1, 5, 16, 37, 96, 512):
+        assert segdp_cuda._tri_floats(P, N) == sum(P - 1 - k for k in range(0, P, N))
+    limit = segdp_cuda._MAX_SMEM
+    for cap, smem_h in ((segdp_cuda.cluster_smem_max_p(N), True),
+                        (segdp_cuda.cluster_max_p(N), False)):
+        assert segdp_cuda.cluster_smem_bytes(cap, N, smem_h) <= limit
+        assert segdp_cuda.cluster_smem_bytes(cap + 1, N, smem_h) > limit
+    assert segdp_cuda.cluster_smem_max_p(N) < segdp_cuda.cluster_max_p(N)
+    if N == segdp_cuda.CLUSTER_SIZE:
+        assert segdp_cuda.cluster_smem_max_p() >= 512
+
+
+@pytest.mark.parametrize("B,P,smem_max_p,want", [
+    (35, 256, None, 16),  # every cluster of 16 resident at once
+    (36, 256, None, 8),  # one more than fits: 8 blocks a cluster
+    (1, 900, None, 16),  # past 774: H in device memory, on 16 blocks still
+    (1, 1000, None, 8),  # past what 16 blocks take: 8 (which refuses it)
+    (1, 600, 700, 16), (1, 600, 800, 8),  # a cap past what 16 blocks hold
+])
+def test_cluster_size_follows_the_resident_clusters(monkeypatch, B, P, smem_max_p, want):
+    """cluster_size_for takes 16 blocks a cluster when the kernel takes P
+    on 16 blocks (and the cap, if given, fits them) and the runtime keeps
+    B such clusters resident at once; here the runtime's answer is
+    simulated as 35 clusters."""
+    from freddie_tpu_torch.ops import segdp_cuda
+
+    monkeypatch.setattr(segdp_cuda, "cluster_occupancy",
+                        lambda P, N=None, smem_max_p=None: {"max_active_clusters": 35})
+    assert segdp_cuda.cluster_size_for(B, P, smem_max_p) == want
+
+
+@pytest.mark.parametrize("P,smem_max_p,cluster_size,want", [
+    (64, None, None, (0, None)),  # narrow: one block per problem, H in shared memory
+    ("min", None, None, ("size", None)),  # from CLUSTER_MIN_P: a cluster per problem
+    (512, None, None, ("size", None)),
+    (64, 0, None, ("size", 0)),  # H forced to device memory: the cluster kernel's route
+    (32, None, 4, (4, None)),  # the cluster route forced at small P
+    (224, None, 0, (0, None)),  # the one-block route forced where it fits
+    (256, None, 0, ValueError),  # and refused where it does not
+    ("max+1", None, None, ValueError),  # past the cluster kernel's ring
+    (64, None, 17, ValueError),  # past the largest cluster
+])
+def test_k1_route_by_shape(P, smem_max_p, cluster_size, want):
+    """K1's wavefront by shape, and what cluster_size forces or refuses;
+    (N, cap) with cap None meaning the route's own limit."""
+    from freddie_tpu_torch.ops import segdp_cuda
+
+    N = segdp_cuda.CLUSTER_SIZE
+    P = {"min": segdp_cuda.CLUSTER_MIN_P, "max+1": segdp_cuda.cluster_max_p() + 1}.get(P, P)
+    if want is ValueError:
+        with pytest.raises(ValueError):
+            segdp_cuda._k1_route(P, smem_max_p, cluster_size)
+        return
+    n, cap = want
+    n = N if n == "size" else n
+    if cap is None:
+        cap = segdp_cuda.cluster_smem_max_p(n) if n else segdp_cuda.K1_SMEM_MAX_P
+    if n == 0 and cluster_size is None:
+        cap = segdp_cuda.cluster_smem_max_p()  # by shape: the default route's cap
+    assert segdp_cuda._k1_route(P, smem_max_p, cluster_size) == (n, cap)

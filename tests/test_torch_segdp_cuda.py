@@ -37,6 +37,25 @@ def padded_batch(rng, B, P, R, wide):
     return C, y, W, n_cand
 
 
+def segment_batch(rng, B, P, R, ties=False):
+    """B problems of P candidates each with the structure of real
+    coverage: candidates 5..40 bp apart, a quarter of them true
+    breakpoints, and each rep covering each true segment fully or not at
+    all, so that most pairs pass the thresholds and the DP has long chains
+    to choose from; with ``ties`` unit weights, so that many sums are
+    equal and the first-index rule decides."""
+    C = np.zeros((B, P, R), dtype=np.int32)
+    y = np.zeros((B, P), dtype=np.int32)
+    for b in range(B):
+        y[b] = np.concatenate([[0], np.cumsum(rng.integers(5, 41, size=P - 1))])
+        seg = np.cumsum(rng.random(P) < 0.25)  # the true segment of candidate p's left gap
+        covered = rng.random((seg[-1] + 1, R)) < 0.5
+        gap = np.diff(y[b], prepend=0)[:, None]
+        C[b] = np.cumsum(np.where(covered[seg], gap, 0), axis=0)
+    W = (np.ones((B, R)) if ties else rng.integers(1, 5, size=(B, R))).astype(np.float32)
+    return C, y, W, np.full((B,), P, dtype=np.int32)
+
+
 @pytest.fixture
 def cuda_device():
     """The card; the tests marked ``cuda`` skip without one."""
@@ -229,10 +248,12 @@ def test_k2_above_its_shared_memory_keeps_h_in_device_memory(cuda_device, P):
     dict(B=8, P=256, R=128, groups=3), dict(B=8, P=64, R=512, groups=8),  # forced groups
 ], ids=lambda c: "-".join(f"{k}{v}" for k, v in c.items()))
 def test_k1_with_h_in_device_memory_and_in_groups(cuda_device, case, monkeypatch):
-    """K1 with its wavefront's H in device memory -- above K1_SMEM_MAX_P,
-    or at any P with the cap forced to 0 -- and K1 over a batch cut into
-    groups by a scratch budget forced low: bit-equal to the plain version,
-    chains included, and to K1 with H in shared memory where that fits."""
+    """K1 at the wide buckets (its cluster wavefront), with its
+    wavefront's H in device memory at any P with the cap forced to 0 (the
+    cluster kernel's device-memory instantiation), and over a batch cut
+    into groups by a scratch budget forced low: bit-equal to the plain
+    version, chains included, and to K1 with H in shared memory where
+    that fits."""
     from freddie_tpu_torch.ops import segdp_cuda
 
     B, P, R = case["B"], case["P"], case["R"]
@@ -248,11 +269,12 @@ def test_k1_with_h_in_device_memory_and_in_groups(cuda_device, case, monkeypatch
         per = segdp_cuda.scratch_bytes(P)
         monkeypatch.setattr(segdp_cuda, "SCRATCH_BUDGET", per * (-(-B // case["groups"])))
         assert -(-B // segdp_cuda.group_size(B, P)) == case["groups"]
-    before = (segdp_cuda.LAUNCHES, segdp_cuda.DEVICE_H_LAUNCHES)
+    before = (segdp_cuda.LAUNCHES, segdp_cuda.DEVICE_H_LAUNCHES, segdp_cuda.CLUSTER_LAUNCHES)
     K, bj, bk, chains = segdp_cuda.solve_batch_cuda(*args, with_chains=True, smem_max_p=cap)
-    on_device = P > (segdp_cuda.K1_SMEM_MAX_P if cap is None else cap)
-    assert (segdp_cuda.LAUNCHES, segdp_cuda.DEVICE_H_LAUNCHES) == (
-        before[0] + 1, before[1] + on_device)
+    on_device = P > (segdp_cuda.cluster_smem_max_p() if cap is None else cap)
+    on_cluster = on_device or P >= segdp_cuda.CLUSTER_MIN_P
+    assert (segdp_cuda.LAUNCHES, segdp_cuda.DEVICE_H_LAUNCHES, segdp_cuda.CLUSTER_LAUNCHES) == (
+        before[0] + 1, before[1] + on_device, before[2] + on_cluster)
     Kt, bjt, bkt = tseg._solve_batch_torch(*args)
     torch.cuda.synchronize()
     assert torch.equal(bj, bjt) and torch.equal(bk, bkt)
@@ -333,10 +355,11 @@ def test_mesh_on_one_card_matches_k1_and_host(cuda_device, n_shards, monkeypatch
 
 @pytest.mark.cuda
 def test_wide_buckets_launch_on_the_card(cuda_device):
-    """P = 224, the widest bucket whose H fits shared memory, and P = 256,
-    the first past it, are both launched and bit-equal to the plain
-    version, chains included; problems of the P = 256 bucket sent through
-    the dispatch are solved by K1 on the card (launches > 0), equal to the
+    """P = 224, the widest bucket whose H fits one block's shared memory,
+    and P = 256, the first past it, are both launched (on clusters) and
+    bit-equal to the plain version, chains included; problems of the P =
+    256 bucket sent through the dispatch are solved by K1's cluster
+    wavefront on the card, H in the cluster's shared memory, equal to the
     host oracle."""
     from freddie_tpu_torch.ops import segdp_cuda
 
@@ -356,8 +379,89 @@ def test_wide_buckets_launch_on_the_card(cuda_device):
         assert torch.equal(chains, tseg._walk_chains(Kt, bjt, bkt))
 
     problems = [random_problem(rng, int(rng.integers(225, 250)), 16) for _ in range(3)]
-    launches = (segdp_cuda.LAUNCHES, segdp_cuda.DEVICE_H_LAUNCHES)
+    launches = (segdp_cuda.LAUNCHES, segdp_cuda.DEVICE_H_LAUNCHES, segdp_cuda.CLUSTER_LAUNCHES)
     got = tseg.solve_batch_device(problems, thr, pad_p_to=256, device=cuda_device)
     assert got == [solve_host(p, thr) for p in problems]
-    assert (segdp_cuda.LAUNCHES, segdp_cuda.DEVICE_H_LAUNCHES) == (
-        launches[0] + 1, launches[1] + 1)
+    assert (segdp_cuda.LAUNCHES, segdp_cuda.DEVICE_H_LAUNCHES, segdp_cuda.CLUSTER_LAUNCHES) == (
+        launches[0] + 1, launches[1], launches[2] + 1)
+    assert segdp_cuda.LAUNCH_SHAPES[-1][:2] == (4, 256)  # three problems pad to 4, not 8
+
+
+def _wide_args(device, B, P, R, seed, structured=False, ties=False):
+    """solve_batch_cuda's arguments for B random problems padded to (P, R)
+    on ``device``, the first filling all P candidates; or, ``structured``,
+    segment_batch's problems (with unit weights when ``ties``)."""
+    rng = np.random.default_rng(seed)
+    thr = ScaledThresholds(0.9)
+    if structured:
+        C, y, W, n_cand = segment_batch(rng, B, P, R, ties)
+    else:
+        C, y, W, n_cand = padded_batch(rng, B, P, R, False)
+        n_cand[0] = P
+    t = tseg.to_device(dict(C=C, y=y, W=W, n_cand=n_cand), device)
+    lookup = torch.from_numpy(thr.lookup).to(device)
+    return (t["C"], t["y"], t["W"], t["n_cand"], 3, lookup, thr.scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    dict(B=8, P=256, R=128), dict(B=2, P=512, R=128),  # the wide buckets, by shape
+    dict(B=8, P=224, R=128, cluster=0),  # against the one-block wavefront
+    dict(B=8, P=256, R=128, cap=0), dict(B=2, P=512, R=128, cap=0),  # H in device memory
+    dict(B=2, P=512, R=128, cluster=16),  # sixteen blocks a cluster
+    dict(B=8, P=96, R=128, cluster=4), dict(B=8, P=64, R=512, cluster=2),  # forced, small P
+    dict(B=1, P=160, R=128),  # one problem
+    dict(B=8, P=192, R=64, structured=True),  # every candidate live, long chains
+    dict(B=8, P=192, R=64, structured=True, ties=True),  # and unit weights: ties
+    dict(B=2, P=512, R=128, structured=True, ties=True),
+], ids=lambda c: "-".join(f"{k}{v}" for k, v in c.items()))
+def test_cluster_wavefront_matches_plain(cuda_device, case):
+    """K1's cluster wavefront: K, best_j, best_k and the chains bit-equal to
+    _solve_batch_torch (and, where given, to the one-block wavefront),
+    with H in the cluster's shared memory and in device memory, on 2 to 16
+    blocks a cluster; each call counts one CLUSTER_LAUNCHES."""
+    from freddie_tpu_torch.ops import segdp_cuda
+
+    B, P, R = case["B"], case["P"], case["R"]
+    args = _wide_args(cuda_device, B, P, R, B * P + R, case.get("structured", False),
+                      case.get("ties", False))
+    N = case.get("cluster", 0) or None
+    before = (segdp_cuda.CLUSTER_LAUNCHES, segdp_cuda.DEVICE_H_LAUNCHES)
+    K, bj, bk, chains = segdp_cuda.solve_batch_cuda(*args, with_chains=True,
+                                                    smem_max_p=case.get("cap"), cluster_size=N)
+    assert (segdp_cuda.CLUSTER_LAUNCHES, segdp_cuda.DEVICE_H_LAUNCHES) == (
+        before[0] + 1, before[1] + (case.get("cap") == 0))
+    Kt, bjt, bkt = tseg._solve_batch_torch(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(bj, bjt) and torch.equal(bk, bkt)
+    assert torch.equal(K[:, : P - 1], Kt[:, : P - 1])
+    assert torch.equal(K[:, P - 1, 0], bj) and torch.equal(K[:, P - 1, 1], bk)
+    assert torch.equal(chains, tseg._walk_chains(Kt, bjt, bkt))
+    if case.get("cluster") == 0:
+        one = segdp_cuda.solve_batch_cuda(*args, with_chains=True, cluster_size=0)
+        assert all(torch.equal(a, b) for a, b in zip((K, bj, bk, chains), one))
+    assert (bjt >= 0).any(), "no problem segmented: the case is vacuous"
+
+
+@pytest.mark.cuda
+def test_refused_cluster_launch_raises(cuda_device, monkeypatch):
+    """A cluster launch the runtime refuses raises and falls back to
+    nothing: here the cap is patched past what fits, so the P = 576 launch
+    on 8 blocks asks a block for more shared memory than it has. The
+    runtime reports at least one resident cluster of 8 and of 16 blocks at
+    the wide widths, and cluster_size_for takes 16 exactly while the
+    batch's clusters of 16 all fit."""
+    from freddie_tpu_torch.ops import segdp_cuda
+
+    for P in (segdp_cuda.CLUSTER_MIN_P, 256, 512):
+        for N in (segdp_cuda.CLUSTER_SIZE, segdp_cuda.WIDE_CLUSTER_SIZE):
+            assert segdp_cuda.cluster_occupancy(P, N)["max_active_clusters"] >= 1
+        fit = segdp_cuda.cluster_occupancy(P, 16)["max_active_clusters"]
+        assert segdp_cuda.cluster_size_for(fit, P) == 16
+        assert segdp_cuda.cluster_size_for(fit + 1, P) == segdp_cuda.CLUSTER_SIZE
+    args = _wide_args(cuda_device, 1, 576, 64, 576)
+    monkeypatch.setattr(segdp_cuda, "cluster_smem_max_p", lambda N=None: 10**4)
+    before = (segdp_cuda.LAUNCHES, segdp_cuda.CLUSTER_LAUNCHES)
+    with pytest.raises(RuntimeError, match="kernel launch failed"):
+        segdp_cuda.solve_batch_cuda(*args, cluster_size=8)
+    assert (segdp_cuda.LAUNCHES, segdp_cuda.CLUSTER_LAUNCHES) == before

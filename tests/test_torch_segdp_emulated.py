@@ -6,7 +6,10 @@ stand-in (``tests/cuda_emu/emu.h``) and run at small shapes, including a
 ragged P and R and the multi-tile (P > 64) path: K1's two launches (the
 live-tile pair statistics, whose tensor-core step and asynchronous copies
 the stand-in implements in plain C++ with the documented fragment
-layout, then the wavefront with its chain walk), and K2's one
+layout, then the wavefront with its chain walk, on one block per problem
+or on a thread-block cluster of N blocks per problem, whose blocks the
+stand-in runs at once with a cluster barrier and mapped shared memory),
+and K2's one
 warp-specialised launch (the same two bodies in a producer and a consumer
 group with a per-slot hand-off) at grid sizes where a block gets one
 problem, several, or all of them, with either group stalled so that the
@@ -14,9 +17,9 @@ hand-off is walked with the producer ahead and with the consumer ahead,
 with the blocks run in turn (block 0 drains the work queue) and all at
 once (every block draws several problems while the others draw too);
 each kernel with its wavefront's H in shared memory and, the cap forced
-to 0, in device memory, the route of P above what a block holds (K2's
-blocks then each own a plane of H, which blocks run at once must not
-share). The scratch starts as
+to 0, in device memory, the route of P above what a block holds (K1's
+cluster kernel then keeps its rows there; K2's blocks each own a plane
+of H, which blocks run at once must not share). The scratch starts as
 garbage, so an entry that phase 1 leaves unwritten and the wavefront
 reads would show. It checks the
 kernels' indexing, live-tile logic, weight limbs, masks, reductions, tie
@@ -38,9 +41,9 @@ import torch
 from freddie_tpu_torch.ops import segdp as tseg
 from freddie_tpu_torch.ops.segdp import ScaledThresholds
 from freddie_tpu_torch.ops.segdp_cuda import (
-    K1_SMEM_MAX_P, K2_SMEM_MAX_P, REP_STAGE, kernel_inputs)
+    K1_SMEM_MAX_P, K2_SMEM_MAX_P, REP_STAGE, cluster_smem_max_p, kernel_inputs)
 from test_segdp import random_problem
-from test_torch_segdp_cuda import padded_batch
+from test_torch_segdp_cuda import padded_batch, segment_batch
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 EMU = pathlib.Path(__file__).resolve().parent / "cuda_emu"
@@ -92,12 +95,19 @@ def _full_short_batch(rng, B, P, R):
 
 
 def _run_and_check(emulator, tmp_path, B, P, R, wide, full, grid=(), rs=3, scale_w=1,
-                   short=False, full_short=False, stall=None, at_once=None, cap=None):
+                   short=False, full_short=False, stall=None, at_once=None, cap=None,
+                   cluster=None, segments=False, ties=False, skew=100):
     """Runs the emulated kernels on a random padded batch (K2 when
-    ``grid`` holds G) and holds them
+    ``grid`` holds G; K1's wavefront on clusters of ``cluster`` blocks
+    when it is given) and holds them
     against _solve_batch_torch, and their chains against _walk_chains.
     ``cap``: the widest P whose H stays in shared memory (default the
     kernel's own limit; 0 puts H in device memory);
+    ``segments``: the structured batch of segment_batch (long chains),
+    with unit weights when ``ties``, so that many sums are equal and the
+    first-index rule decides most maxima; ``skew``: with a cluster, rank r
+    sleeps r*skew us a step (EMU_CLUSTER_SKEW), so ranks drift apart where
+    no barrier holds them;
     ``short``: few candidates in a wide padding (dead blocks);
     ``scale_w``: weights past two 7-bit limbs; ``full_short``: the batch of
     _full_short_batch; ``stall``: "id:ms", every wait at named barrier id
@@ -107,6 +117,8 @@ def _run_and_check(emulator, tmp_path, B, P, R, wide, full, grid=(), rs=3, scale
     thr = ScaledThresholds(0.9)
     if full_short:
         C, y, W, n_cand = _full_short_batch(rng, B, P, R)
+    elif segments:
+        C, y, W, n_cand = segment_batch(rng, B, P if not short else max(6, P // 3), R, ties)
     else:
         C, y, W, n_cand = padded_batch(rng, B, P if not short else max(6, P // 3), R, wide)
     if short:
@@ -126,11 +138,14 @@ def _run_and_check(emulator, tmp_path, B, P, R, wide, full, grid=(), rs=3, scale
     for name, a in inputs.items():
         np.ascontiguousarray(a.numpy(), dtype=np.int32).tofile(tmp_path / f"{name}.bin")
     if cap is None:
-        cap = K2_SMEM_MAX_P if grid else K1_SMEM_MAX_P
+        cap = (K2_SMEM_MAX_P if grid else
+               cluster_smem_max_p(cluster) if cluster else K1_SMEM_MAX_P)
     subprocess.run([str(emulator), str(B), str(P), str(Cs.shape[2]), str(rs), str(cap),
-                    *map(str, grid), *([str(at_once)] if at_once else [])],
+                    *map(str, grid), *([f"c{cluster}"] if cluster else []),
+                    *([str(at_once)] if at_once else [])],
                    cwd=tmp_path, check=True, capture_output=True, timeout=300,
-                   env={**os.environ, **({"EMU_STALL": stall} if stall else {})})
+                   env={**os.environ, **({"EMU_STALL": stall} if stall else {}),
+                        **({"EMU_CLUSTER_SKEW": str(skew)} if cluster else {})})
     K = np.fromfile(tmp_path / "K.bin", np.int32).reshape(B, P, P)
     bj = np.fromfile(tmp_path / "bj.bin", np.int32)
     bk = np.fromfile(tmp_path / "bk.bin", np.int32)
@@ -143,6 +158,8 @@ def _run_and_check(emulator, tmp_path, B, P, R, wide, full, grid=(), rs=3, scale
     np.testing.assert_array_equal(K[:, P - 1, :2], np.stack([bj, bk], 1))
     chains = np.fromfile(tmp_path / "chains.bin", np.int32).reshape(B, P + 2)
     np.testing.assert_array_equal(chains, tseg._walk_chains(Kt, bjt, bkt).numpy())
+    if segments:
+        assert (bjt >= 0).any(), "no structured problem segmented: the case is vacuous"
     if not grid:
         _check_live_scratch(tmp_path, C, y, W, n_cand, rs, thr)
     else:
@@ -279,20 +296,51 @@ def test_emulated_k2_blocks_draw_from_the_queue_at_once(emulator, tmp_path, case
 
 
 @pytest.mark.parametrize("case", [
-    dict(B=3, P=16, R=128, wide=False, full=False),
-    dict(B=2, P=40, R=100, wide=True, full=False),  # wide weights, ragged tiles and stages
-    dict(B=1, P=72, R=40, wide=False, full=True),  # two output tiles per side
-    dict(B=1, P=80, R=128, wide=True, full=False),  # two stages, two limbs
-    dict(B=3, P=32, R=64, wide=False, full=False, short=True),  # n_cand << P: dead blocks
+    dict(B=3, P=16, R=128, wide=False, full=False, cluster=2),
+    dict(B=2, P=40, R=100, wide=True, full=False, cluster=4),  # wide weights, ragged tiles
+    dict(B=1, P=72, R=40, wide=False, full=True, cluster=4),  # two output tiles per side
+    dict(B=1, P=80, R=128, wide=True, full=False, cluster=2),  # two stages, two limbs
+    dict(B=3, P=32, R=64, wide=False, full=False, short=True, cluster=4),  # dead blocks
 ], ids=["3-16-128", "wide_2-40-100", "full_1-72-40", "limbs2_1-80-128", "short"])
 def test_emulated_k1_wavefront_with_h_in_device_memory(emulator, tmp_path, case):
-    """K1 with the cap forced to 0: wavefront_gmem_kernel, H a (B, P, P)
-    plane per problem in device memory that starts as garbage, as above
-    P = 240 on the card. K, best_j, best_k, the chains and phase 1's live
-    scratch equal the plain version's."""
+    """K1 with the cap forced to 0: the cluster wavefront's device-memory
+    instantiation, each block's rows of H in a (B, P, P) plane per problem
+    in device memory that starts as garbage, as above
+    cluster_smem_max_p() on the card. K, best_j, best_k, the chains and
+    phase 1's live scratch equal the plain version's."""
     case = dict(case)
     _run_and_check(emulator, tmp_path, case.pop("B"), case.pop("P"), case.pop("R"),
                    case.pop("wide"), case.pop("full"), cap=0, **case)
+
+
+@pytest.mark.parametrize("case", [
+    dict(B=3, P=16, R=128, cluster=2),
+    dict(B=2, P=18, R=64, cluster=4),  # P not a multiple of N
+    dict(B=2, P=37, R=100, cluster=2),  # odd P, ragged tiles
+    dict(B=2, P=40, R=64, cluster=4, short=True),  # a short problem in a wide padding
+    dict(B=3, P=24, R=64, cluster=4, ties=True),  # unit weights: first index wins
+    dict(B=2, P=30, R=64, cluster=2, ties=True),
+    dict(B=2, P=34, R=64, cluster=4, ties=True, cap=0),  # ties with H in device memory
+    dict(B=2, P=33, R=64, cluster=4, cap=0),
+    dict(B=1, P=72, R=40, cluster=4),  # two output tiles per side
+    dict(B=2, P=8, R=64, cluster=4),  # each block owns two rows
+    dict(B=2, P=7, R=64, cluster=8),  # ranks that own no row
+], ids=["n2", "n4_ragged_p", "n2_odd_p", "n4_short", "n4_ties", "n2_ties", "n4_ties_device_h",
+        "n4_device_h", "n4_two_tiles", "n4_p8", "n8_p7"])
+def test_emulated_k1_cluster_wavefront(emulator, tmp_path, case):
+    """K1's wavefront on a thread-block cluster of N blocks per problem,
+    forced at small P (on the card it runs from CLUSTER_MIN_P), on
+    structured problems whose every candidate is live and which all
+    segment: rows owned cyclically, H in the blocks' shared memory (or,
+    cap 0, in device memory) written across blocks through the mapped
+    shared memory, the outside planes copied a step ahead, the argmaxes
+    merged in rank 0. The N blocks of a cluster run at once, drifting
+    apart by rank wherever no barrier holds them, and a block's shared
+    memory turns to garbage when it exits. Zero tolerance against the
+    plain version, chains included."""
+    case = dict(case)
+    _run_and_check(emulator, tmp_path, case.pop("B"), case.pop("P"), case.pop("R"),
+                   False, False, segments=True, **case)
 
 
 @pytest.mark.parametrize("case", [
