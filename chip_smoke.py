@@ -46,8 +46,14 @@ on the card:
    clusters with H forced into device memory, bit-equal; a sweep of both
    wavefronts over P and B on clusters of 8 and 16 blocks with the
    runtime's resident clusters and the cluster barrier's latency floor
-   (the data behind CLUSTER_MIN_P); K2 at (8, 256, 128) bit-equal to K1,
-   driven with the counts at zero; K1 at (8, 256, 128) in three groups
+   (the data behind CLUSTER_MIN_P); K2's cluster route at (8, 256, 128)
+   and (2, 512, 128), driven with the counts at zero, bit-equal to K1 and
+   to the plain version, chains included, timed beside K1 with the bound
+   and its launch's device time; a sweep of K2 over P and B on its
+   one-block route and on clusters of 8 and 16 blocks (the data behind
+   K2_CLUSTER_MIN_P and k2_cluster_size_for); K2's one-block route at
+   (8, 256, 128), forced, driven with the counts at zero, equal to K1;
+   K1 at (8, 256, 128) in three groups
    under a scratch budget forced low, bit-equal; problems of the P = 256
    bucket through the dispatch, one launch at B = 4, equal to the host
    oracle;
@@ -298,8 +304,9 @@ def pipelined_path(dev, card) -> int:
         f"{len(names[True])} launches, the same as without chains, the last "
         f"segdp_pipelined_kernel; chains equal to _walk_chains")
     for P in (16, 32, 64, 96, 160):
-        log(f"[pipelined] K2 at P={P}, as the runtime reports it: "
-            f"{json.dumps(segdp_cuda.pipelined_occupancy(P))}, grid "
+        log(f"[pipelined] K2's one-block route at P={P} (by shape K2 takes its cluster "
+            f"route from K2_CLUSTER_MIN_P = {segdp_cuda.K2_CLUSTER_MIN_P}), as the runtime "
+            f"reports it: {json.dumps(segdp_cuda.pipelined_occupancy(P))}, grid "
             f"{segdp_cuda.pipelined_grid(65535, P)}, on {card}")
     _B, P, R = BENCH_SHAPE
     tail = k2_tail(dev, P, R, BENCH_SHAPE[0], args[5], thr.scale)
@@ -892,21 +899,80 @@ def cluster_sweep(dev, card, rng) -> None:
         torch.cuda.empty_cache()
 
 
+# The sweep behind segdp_cuda.K2_CLUSTER_MIN_P and k2_cluster_size_for:
+# K2 at each (P, B) on its one-block route and on its cluster route on
+# each cluster size that takes P; B = 1 and 8 at every width from P = 96
+# to 512, and the segment stage's full chunks at R = 128 of the P = 96,
+# 128 and 256 buckets.
+K2_SWEEP = [(P, B) for P in (96, 128, 160, 192, 256, 512) for B in (1, 8)] + [
+    (96, 128), (128, 64), (256, 16)]
+
+
+def k2_sweep(dev, card, rng) -> None:
+    """K2 at each (P, B) of K2_SWEEP: the one-block route and the cluster
+    route on N blocks for N in SWEEP_N where it takes P, bit-equal to each
+    other and to K1, each call's time (K1's beside it), the profiler's
+    device time of each K2 launch, and what the runtime reports for the
+    cluster route (resident clusters, shared memory, registers) with the
+    clusters the call runs on."""
+    import torch
+
+    from freddie_tpu_torch.ops import segdp_cuda
+    from freddie_tpu_torch.tools.profile_kernel_phases import device_ms_by_kernel
+
+    for P, B in K2_SWEEP:
+        args, _t = wide_batch(dev, rng, B, P, 128)
+        k1 = segdp_cuda.solve_batch_cuda(*args, with_chains=True)
+        routes = [0] + [n for n in SWEEP_N if P <= segdp_cuda.k2_cluster_max_p(n)]
+        bad = [n for n in routes if not same_result(
+            segdp_cuda.solve_batch_cuda(*args, pipelined=True, with_chains=True,
+                                        cluster_size=n), k1)]
+        if bad:
+            raise RuntimeError(f"K2 at B={B} P={P}: the routes {bad} (0: one block) != K1")
+        parts = [f"K1 {time_ms(lambda: segdp_cuda.solve_batch_cuda(*args)):.3f} ms"]
+        for n in routes:
+            ms = time_ms(lambda: segdp_cuda.solve_batch_cuda(*args, pipelined=True,
+                                                             cluster_size=n))
+            dev_ms = device_ms_by_kernel(
+                [lambda: segdp_cuda.solve_batch_cuda(*args, pipelined=True, cluster_size=n)])
+            if n == 0:
+                parts.append(f"one block an SM {ms:.3f} ms (launch "
+                             f"{dev_ms.get('segdp_pipelined_kernel')} ms; grid "
+                             f"{segdp_cuda.pipelined_grid(B, P)})")
+                continue
+            occ = segdp_cuda.k2_cluster_occupancy(P, n)
+            parts.append(f"N={n} {ms:.3f} ms (launch "
+                         f"{dev_ms.get('segdp_pipelined_cluster_kernel')} ms; "
+                         f"{segdp_cuda.pipelined_cluster_grid(B, P, n)} clusters; max active "
+                         f"clusters {occ['max_active_clusters']}, {occ['smem_bytes']} B a block, "
+                         f"{occ['registers']} registers)")
+        by_shape = segdp_cuda._k2_route(P, None, None, lambda: segdp_cuda.k2_cluster_size_for(B, P))
+        log(f"[sweep] K2 at B={B} P={P} R=128 (by shape: "
+            f"{'clusters of %d' % by_shape[0] if by_shape[0] else 'one block an SM'}): every "
+            f"route equal to K1, chains included; whole call (medians of {TIMED_REPS}) and the "
+            f"K2 launch's device time (profiler, mean of 3): {'; '.join(parts)}; on {card}")
+        del args, _t, k1
+        torch.cuda.empty_cache()
+
+
 def wide_phase(dev, card, workdir: str, p512: dict) -> dict:
     """The wide buckets, where K1's wavefront runs on thread-block
     clusters: K1 at (8, 256, 128) and (2, 512, 128) against the plain
     version, with its wavefront's device time and the call's peak memory;
     K1 at (8, 224, 128) on one block a problem, on clusters and on clusters
     with H forced into device memory, against each other; the sweep
-    (cluster_sweep); K2 at (8, 256, 128), driven with the counts at zero,
-    against K1; K1 under a scratch budget forced low enough for three
-    groups; problems of the P = 256 bucket through solve_batch_device
-    against solve_host; and the ``segment`` CLI on the card against the CPU
+    (cluster_sweep); K2's sweep (k2_sweep); K2 at (8, 256, 128) and (2,
+    512, 128), driven with the counts at zero (its cluster route), against
+    K1 and the plain version, timed; K2's one-block route at (8, 256, 128),
+    forced, driven with the counts at zero, against K1; K1 under a scratch
+    budget forced low enough for three groups; problems of the P = 256
+    bucket through solve_batch_device against solve_host; and the ``segment`` CLI on the card against the CPU
     (--max-problem-size 250, buckets up to 256) and against the host
     oracle (--max-problem-size 500, a problem in the P = 512 bucket; its
     host run was started by start_p512_host).
     Returns the CLI runs' K1 launches, cluster launches and device-memory-H
-    launches, K2's device-memory-H launches, and the two wide kernel rows."""
+    launches, K2's cluster-route launches and its one-block route's, and
+    the wide kernel rows."""
     import numpy as np
     import torch
 
@@ -921,6 +987,7 @@ def wide_phase(dev, card, workdir: str, p512: dict) -> dict:
 
     rng = np.random.default_rng(256)
     rows = {}
+    wide = {}  # (B, P, R): the batch's arguments and tensors, K1's result, the plain one
     for B, P, R in ((8, 256, 128), (2, 512, 128)):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
@@ -929,10 +996,10 @@ def wide_phase(dev, card, workdir: str, p512: dict) -> dict:
         torch.cuda.synchronize()
         k1_mib = torch.cuda.max_memory_allocated(dev) / 2**20
         plain = _solve_batch_torch(*args)
+        plain += (_walk_chains(*plain),)
         err = max_abs_diff(k1[:3], plain, P)
-        if err != 0 or not torch.equal(k1[3], _walk_chains(*plain)):
+        if err != 0 or not torch.equal(k1[3], plain[3]):
             raise RuntimeError(f"K1 != plain at B={B} P={P} R={R}: max abs err {err}")
-        del plain
         k1_ms = time_ms(lambda: segdp_cuda.solve_batch_cuda(*args))
         p_ms = time_ms(lambda: _solve_batch_torch(*args))
         phases = device_ms_by_kernel([lambda: segdp_cuda.solve_batch_cuda(*args)])
@@ -948,12 +1015,14 @@ def wide_phase(dev, card, workdir: str, p512: dict) -> dict:
             f"{phases.get('wavefront_cluster_kernel')} ms (profiler, mean of 3); bound "
             f"{b_ms:.4f} ms by {b_by} (bytes {by_bytes:.4f} ms, operations {by_ops:.4f} ms); "
             f"the call's peak device memory {k1_mib:.0f} MiB; on {card}")
+        wide[B, P, R] = dict(args=args, t=t, k1=k1, plain=plain, k1_ms=k1_ms, p_ms=p_ms,
+                             bound=(b_ms, b_by, by_bytes, by_ops))
         if P == 256:
             wide_args, k1_256 = args, k1
             rows["K1 wide (cluster wavefront)"] = dict(
                 max_abs_err=err, ms=k1_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=None)
-        del args, t, k1
+        del args, t, k1, plain
     torch.cuda.empty_cache()
 
     # The wavefronts on a batch that all take: P = 224 on one block a
@@ -971,25 +1040,71 @@ def wide_phase(dev, card, workdir: str, p512: dict) -> dict:
     del args, _t, res
 
     cluster_sweep(dev, card, rng)
+    k2_sweep(dev, card, rng)
 
-    # K2's path above K2_SMEM_MAX_P, driven once with every count at zero.
+    # K2's path above K2_SMEM_MAX_P (its cluster route), driven once at
+    # each wide shape with every count at zero.
     segdp_cuda.LAUNCHES = segdp_cuda.DEVICE_H_LAUNCHES = segdp_cuda.CLUSTER_LAUNCHES = 0
     segdp_cuda.PIPELINED_LAUNCHES = segdp_cuda.PIPELINED_DEVICE_H_LAUNCHES = 0
-    k2 = segdp_cuda.solve_batch_cuda(*wide_args, pipelined=True, with_chains=True)
+    segdp_cuda.PIPELINED_CLUSTER_LAUNCHES = 0
+    k2 = {shape: segdp_cuda.solve_batch_cuda(*w["args"], pipelined=True, with_chains=True)
+          for shape, w in wide.items()}
     torch.cuda.synchronize()
-    k2_launches = segdp_cuda.PIPELINED_DEVICE_H_LAUNCHES
-    if k2_launches <= 0 or segdp_cuda.LAUNCHES != 0:
-        raise RuntimeError(f"K2's wide path made {k2_launches} device-memory-H K2 launches "
-                           f"and {segdp_cuda.LAUNCHES} K1 launches")
-    if not same_result(k2, k1_256):
-        raise RuntimeError("K2 at P = 256 != K1")
-    k2_ms = time_ms(lambda: segdp_cuda.solve_batch_cuda(*wide_args, pipelined=True))
-    rows["K2 wide"] = dict(rows["K1 wide (cluster wavefront)"], ms=k2_ms)
-    log(f"[wide] K2 at B=8 P=256 R=128 (grid {segdp_cuda.pipelined_grid(8, 256)}, H in device "
-        f"memory above K2_SMEM_MAX_P = {segdp_cuda.K2_SMEM_MAX_P}; the runtime reports "
-        f"{json.dumps(segdp_cuda.pipelined_occupancy(256))}): {k2_launches} launch with the "
-        f"counts at zero, equal to K1, chains included; {k2_ms:.3f} ms (median of "
+    k2_launches = segdp_cuda.PIPELINED_CLUSTER_LAUNCHES
+    if k2_launches != len(wide) or segdp_cuda.PIPELINED_LAUNCHES != k2_launches \
+            or segdp_cuda.LAUNCHES != 0:
+        raise RuntimeError(f"K2's wide path made {segdp_cuda.PIPELINED_LAUNCHES} K2 launches, "
+                           f"{k2_launches} on its cluster route, and {segdp_cuda.LAUNCHES} K1 "
+                           "launches")
+    for (B, P, R), w in wide.items():
+        res = k2[B, P, R]
+        err = max_abs_diff(res[:3], w["plain"], P)
+        if err != 0 or not torch.equal(res[3], w["plain"][3]) or not same_result(res, w["k1"]):
+            raise RuntimeError(f"K2's cluster route at B={B} P={P} R={R} != K1 or plain: max "
+                               f"abs err {err}")
+        args = w["args"]
+        n = segdp_cuda.k2_cluster_size_for(B, P)
+        k2_ms = time_ms(lambda: segdp_cuda.solve_batch_cuda(*args, pipelined=True))
+        dev_ms = device_ms_by_kernel([lambda: segdp_cuda.solve_batch_cuda(*args, pipelined=True)])
+        b_ms, b_by, by_bytes, by_ops = w["bound"]
+        log(f"[wide] K2 at B={B} P={P} R={R} (cluster route from K2_CLUSTER_MIN_P = "
+            f"{segdp_cuda.K2_CLUSTER_MIN_P}: {segdp_cuda.pipelined_cluster_grid(B, P, n)} "
+            f"clusters of {n} blocks, H in their shared memory up to P = "
+            f"{segdp_cuda.k2_cluster_smem_max_p(n)}; the runtime reports "
+            f"{json.dumps(segdp_cuda.k2_cluster_occupancy(P, n))}): bit-equal to plain and to "
+            f"K1, chains included; K2 {k2_ms:.3f} ms, K1 {w['k1_ms']:.3f} ms, plain "
+            f"{w['p_ms']:.3f} ms (medians of {TIMED_REPS}); K2's launch on the device "
+            f"{dev_ms.get('segdp_pipelined_cluster_kernel')} ms (profiler, mean of 3); bound "
+            f"{b_ms:.4f} ms by {b_by} (bytes {by_bytes:.4f} ms, operations {by_ops:.4f} ms); "
+            f"on {card}")
+        if P == 256:
+            rows["K2 wide"] = dict(max_abs_err=err, ms=k2_ms, plain_ms=w["p_ms"], bound_ms=b_ms,
+                                   bound_by=b_by, library_ms=None)
+
+    # The one-block route, which takes P past the cluster route's, driven
+    # once at P = 256 (forced) with every count at zero.
+    segdp_cuda.PIPELINED_LAUNCHES = segdp_cuda.PIPELINED_DEVICE_H_LAUNCHES = 0
+    segdp_cuda.PIPELINED_CLUSTER_LAUNCHES = segdp_cuda.LAUNCHES = 0
+    one = segdp_cuda.solve_batch_cuda(*wide_args, pipelined=True, with_chains=True,
+                                      cluster_size=0)
+    torch.cuda.synchronize()
+    one_launches = segdp_cuda.PIPELINED_DEVICE_H_LAUNCHES
+    if (one_launches, segdp_cuda.PIPELINED_CLUSTER_LAUNCHES, segdp_cuda.LAUNCHES) != (1, 0, 0):
+        raise RuntimeError(f"K2's one-block route at P = 256 made {one_launches} device-memory-H "
+                           f"launches, {segdp_cuda.PIPELINED_CLUSTER_LAUNCHES} cluster launches")
+    if not same_result(one, k1_256):
+        raise RuntimeError("K2's one-block route at P = 256 != K1")
+    one_ms = time_ms(lambda: segdp_cuda.solve_batch_cuda(*wide_args, pipelined=True,
+                                                         cluster_size=0))
+    rows["K2 wide, one block an SM"] = dict(rows["K1 wide (cluster wavefront)"], ms=one_ms)
+    log(f"[wide] K2's one-block route at B=8 P=256 R=128 (forced; by shape it takes P above "
+        f"k2_cluster_max_p(16) = {segdp_cuda.k2_cluster_max_p(16)}; grid "
+        f"{segdp_cuda.pipelined_grid(8, 256)}, H in device memory above K2_SMEM_MAX_P = "
+        f"{segdp_cuda.K2_SMEM_MAX_P}; the runtime reports "
+        f"{json.dumps(segdp_cuda.pipelined_occupancy(256))}): {one_launches} launch with the "
+        f"counts at zero, equal to K1, chains included; {one_ms:.3f} ms (median of "
         f"{TIMED_REPS}), on {card}")
+    del wide, k2, one
 
     # A scratch budget forced low: K1 solves the batch in three groups.
     budget = segdp_cuda.SCRATCH_BUDGET
@@ -1005,7 +1120,7 @@ def wide_phase(dev, card, workdir: str, p512: dict) -> dict:
     log(f"[wide] K1 at B=8 P=256 R=128 in groups of {g} ({-(-8 // g)} groups on one set of "
         f"scratch buffers): equal to the batch in one group; {grouped_ms:.3f} ms (median of "
         f"{TIMED_REPS}), on {card}")
-    del wide_args, k1_256, k2, grouped
+    del wide_args, k1_256, grouped
     torch.cuda.empty_cache()
 
     thr = ScaledThresholds(0.9)
@@ -1079,7 +1194,8 @@ def wide_phase(dev, card, workdir: str, p512: dict) -> dict:
         c_launches += on_clusters
         h_launches += on_device
     return dict(k1_launches=k1_launches, k1_cluster_launches=c_launches,
-                k1_device_h_launches=h_launches, k2_device_h_launches=k2_launches, rows=rows)
+                k1_device_h_launches=h_launches, k2_cluster_launches=k2_launches,
+                k2_one_block_launches=one_launches, rows=rows)
 
 
 def window_phase(dev, card, run: dict, workdir: str) -> int:
@@ -1252,9 +1368,11 @@ def main(argv=None) -> int:
     log(f"[kernels] segdp (K1) launches by path: {json.dumps(by_path)}, of which with the "
         f"wavefront on clusters: {json.dumps({'wide': wide['k1_cluster_launches']})}, with H in "
         f"device memory: {json.dumps({'wide': wide['k1_device_h_launches']})}; "
-        f"segdp_pipelined (K2): {json.dumps({'pipelined': pipe_launches})}, with H in device "
-        f"memory: {json.dumps({'wide': wide['k2_device_h_launches']})}")
-    if wide["k1_cluster_launches"] <= 0 or wide["k2_device_h_launches"] <= 0:
+        f"segdp_pipelined (K2): {json.dumps({'pipelined': pipe_launches})}, on its cluster "
+        f"route: {json.dumps({'wide': wide['k2_cluster_launches']})}, on its one-block route "
+        f"with H in device memory: {json.dumps({'wide': wide['k2_one_block_launches']})}")
+    if min(wide["k1_cluster_launches"], wide["k2_cluster_launches"],
+           wide["k2_one_block_launches"]) <= 0:
         raise RuntimeError("a wide route was launched no time in its run")
     log(card)
     kern.update(wide["rows"])
@@ -1262,7 +1380,9 @@ def main(argv=None) -> int:
             ("segdp_pipelined", "freddie_tpu/ops/segdp_pallas.py:445", pipe_launches),
             ("K1 wide (cluster wavefront)", "freddie_tpu/ops/segdp_pallas.py:65",
              wide["k1_cluster_launches"]),
-            ("K2 wide", "freddie_tpu/ops/segdp_pallas.py:445", wide["k2_device_h_launches"])]
+            ("K2 wide", "freddie_tpu/ops/segdp_pallas.py:445", wide["k2_cluster_launches"]),
+            ("K2 wide, one block an SM", "freddie_tpu/ops/segdp_pallas.py:445",
+             wide["k2_one_block_launches"])]
     log(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",

@@ -48,11 +48,12 @@ cudaError_t launch_pair_stats(const int* Cs, const int* Thi, const int* Tlo, con
   return cudaGetLastError();
 }
 
-// The launch of `kernel` on B clusters of N blocks of kThreads threads
+// The launch of `kernel` on B clusters of N blocks of `threads` threads
 // with `smem` bytes of dynamic shared memory each, into *cfg (its
 // attribute array *attr); a cluster of more than 8 blocks allowed.
 cudaError_t grid_of_clusters(const void* kernel, int B, int N, size_t smem, cudaStream_t s,
-                             cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
+                             cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
+                             int threads = segdp::kThreads) {
   if (N > 8) {
     cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
@@ -60,7 +61,7 @@ cudaError_t grid_of_clusters(const void* kernel, int B, int N, size_t smem, cuda
   }
   *cfg = cudaLaunchConfig_t{};
   cfg->gridDim = dim3(N * B);
-  cfg->blockDim = dim3(segdp::kThreads);
+  cfg->blockDim = dim3(threads);
   cfg->dynamicSmemBytes = smem;
   cfg->stream = s;
   attr->id = cudaLaunchAttributeClusterDimension;
@@ -104,6 +105,39 @@ PipeKernel pipe_kernel(int P, bool smem_h, size_t* dyn) {
                   : &segdp::segdp_pipelined_kernel<segdp::kTile, false>;
   return smem_h ? &segdp::segdp_pipelined_kernel<2 * segdp::kTile, true>
                 : &segdp::segdp_pipelined_kernel<2 * segdp::kTile, false>;
+}
+
+// K2's cluster route at width P, H in shared memory when smem_h, on G
+// clusters of N blocks: as cluster_config for K1's cluster wavefront.
+cudaError_t pipe_cluster_config(int G, int P, int N, bool smem_h, cudaStream_t s,
+                                cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
+                                const void** kernel) {
+  if (N < 1 || N > segdp::kMaxCluster) return cudaErrorInvalidValue;
+  *kernel = smem_h
+                ? reinterpret_cast<const void*>(&segdp::segdp_pipelined_cluster_kernel<true>)
+                : reinterpret_cast<const void*>(&segdp::segdp_pipelined_cluster_kernel<false>);
+  const size_t smem = segdp::pipelined_cluster_smem_bytes(P, N, smem_h);
+  cudaError_t err = smem_h ? opt_in_smem(segdp::segdp_pipelined_cluster_kernel<true>, smem)
+                           : opt_in_smem(segdp::segdp_pipelined_cluster_kernel<false>, smem);
+  if (err != cudaSuccess) return err;
+  return grid_of_clusters(*kernel, G, N, smem, s, cfg, attr, segdp::kPipeThreads);
+}
+
+// What the runtime reports for a cluster kernel configured in cfg (err:
+// what its configuration returned): out[0] the clusters resident at once
+// (cudaOccupancyMaxActiveClusters), out[1] the shared memory per block
+// (static + dynamic), out[2] the registers per thread. Returns 0 or a
+// cudaError_t.
+int occupancy_of(cudaError_t err, const void* kernel, const cudaLaunchConfig_t& cfg, int* out) {
+  int clusters = 0;
+  cudaFuncAttributes fa;
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, kernel);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = clusters;
+  out[1] = (int)(fa.sharedSizeBytes + cfg.dynamicSmemBytes);
+  out[2] = fa.numRegs;
+  return 0;
 }
 
 }  // namespace
@@ -162,24 +196,13 @@ int segdp_solve(const int* Cs, const int* Thi, const int* Tlo, const int* W,
 
 // What the runtime reports for K1's cluster wavefront at width P on
 // clusters of N blocks (H in shared memory when smem_h) on the current
-// device: out[0] the clusters that can be resident at once
-// (cudaOccupancyMaxActiveClusters), out[1] the shared memory per block
-// (static + dynamic), out[2] the registers per thread. Returns 0 or a
-// cudaError_t.
+// device, as occupancy_of says.
 int segdp_cluster_occupancy(int P, int N, int smem_h, int* out) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   const void* kernel = nullptr;
-  cudaError_t err = cluster_config(1, P, N, smem_h != 0, nullptr, &cfg, &attr, &kernel);
-  int clusters = 0;
-  cudaFuncAttributes fa;
-  if (err == cudaSuccess) err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, kernel);
-  if (err != cudaSuccess) return (int)err;
-  out[0] = clusters;
-  out[1] = (int)(fa.sharedSizeBytes + cfg.dynamicSmemBytes);
-  out[2] = fa.numRegs;
-  return 0;
+  const cudaError_t err = cluster_config(1, P, N, smem_h != 0, nullptr, &cfg, &attr, &kernel);
+  return occupancy_of(err, kernel, cfg, out);
 }
 
 // `steps` rounds of the cluster barrier alone on B clusters of N blocks:
@@ -246,6 +269,47 @@ int segdp_solve_pipelined(const int* Cs, const int* Thi, const int* Tlo,
   kernel<<<G, segdp::kPipeThreads, dyn, static_cast<cudaStream_t>(stream)>>>(
       Cs, Thi, Tlo, W, wsum, wmax, y, n_cand, OT, INS, H, K, best_j, best_k, chains, queue,
       B, P, R, read_support);
+  return (int)cudaGetLastError();
+}
+
+// The same for K2's cluster route.
+int segdp_pipelined_cluster_occupancy(int P, int N, int smem_h, int* out) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  const void* kernel = nullptr;
+  const cudaError_t err =
+      pipe_cluster_config(1, P, N, smem_h != 0, nullptr, &cfg, &attr, &kernel);
+  return occupancy_of(err, kernel, cfg, out);
+}
+
+// Solves B padded problems with K2's cluster route in one launch of G
+// clusters of cluster_n blocks (1 <= G <= B); R, wmax and chains as for
+// segdp_solve. OT: (G, 2, P, P, P) and INS: (G, 2, P, P) scratch; H: (G,
+// P, P) scratch, used when P > smem_max_p (may be null otherwise).
+// Returns 0 or the cudaError_t of the refused launch.
+int segdp_solve_pipelined_cluster(const int* Cs, const int* Thi, const int* Tlo, const int* W,
+                                  const int* wsum, const int* wmax, const int* y,
+                                  const int* n_cand, float* OT, float* INS, float* H, int* K,
+                                  int* best_j, int* best_k, int* chains, int B, int P, int R,
+                                  int read_support, int G, int cluster_n, int smem_max_p,
+                                  void* stream) {
+  const bool smem_h = P <= smem_max_p;
+  if (B <= 0 || P <= 0 || R < 0 || R % segdp::kMmaStage != 0 || G <= 0 || G > B ||
+      (!smem_h && H == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  const void* kernel = nullptr;
+  cudaError_t err = pipe_cluster_config(G, P, cluster_n, smem_h, static_cast<cudaStream_t>(stream),
+                                        &cfg, &attr, &kernel);
+  if (err != cudaSuccess) return (int)err;
+  err = smem_h ? cudaLaunchKernelEx(&cfg, segdp::segdp_pipelined_cluster_kernel<true>, Cs, Thi,
+                                    Tlo, W, wsum, wmax, y, n_cand, OT, INS, H, K, best_j, best_k,
+                                    chains, B, P, R, read_support)
+               : cudaLaunchKernelEx(&cfg, segdp::segdp_pipelined_cluster_kernel<false>, Cs, Thi,
+                                    Tlo, W, wsum, wmax, y, n_cand, OT, INS, H, K, best_j, best_k,
+                                    chains, B, P, R, read_support);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

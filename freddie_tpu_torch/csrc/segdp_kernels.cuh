@@ -166,6 +166,39 @@
 // 64) runs its k in series and then the wavefront, with nothing to
 // overlap: K1 is the kernel for those.
 //
+// K2 for wide problems, segdp_pipelined_cluster_kernel (the route by
+// shape: segdp_cuda.K2_CLUSTER_MIN_P). A wide batch holds a few problems,
+// so one block per problem put a whole problem's phase 1 on one SM and
+// its wavefront on four warps with H in device memory: ~9,000x its bound.
+// The cluster route gives each problem a thread-block cluster of N = 8 or
+// 16 persistent blocks, each with K2's two groups:
+//  - the producers of rank r run phase 1 for the middle indices k = r,
+//    r+N, ... of the cluster's problem, so phase 1 runs on N SMs;
+//  - the consumers run the cluster wavefront of K1
+//    (wavefront_cluster_body): rank r owns rows k = r, r+N, ..., keeps
+//    their H in its shared memory, streams their outside planes a step
+//    ahead and stores H[j][k] into row j's owner.
+//  - The ownership lines up: phase 1 for k writes row k of every outside
+//    plane and inside(., k), which is what the owner of row k reads, so a
+//    block's consumers read what its own producers wrote, but for
+//    inside(k, end) (the H init) and the baseline inside(0, end).
+//  - The hand-off is cluster-wide, through mbarriers in each block's
+//    shared memory (thread q of each block arrives remotely on rank q's
+//    barrier, with release at cluster scope; the waiters acquire):
+//    a slot is "full" once all N producer groups are done with it and
+//    "free" once all N consumer groups are; the consumers' step barrier is
+//    a pair of mbarriers in turn, since barrier.cluster would also wait
+//    for the producers, who are in the next problem's phase 1.
+//  - Cluster c takes problems c, c+G, ... (G clusters, as many as are
+//    resident at once and as the scratch budget allows, at most B), so
+//    the clusters need share nothing; a wide batch rarely has more
+//    problems than clusters, and then each cluster's next phase 1
+//    overlaps its previous wavefront.
+// Its block holds PairSmem<128>, the mbarriers and K1's cluster layout;
+// H fits beside the ring up to segdp_cuda.k2_cluster_smem_max_p(N), the
+// ring alone up to k2_cluster_max_p(N); above that the one-block route
+// above takes P.
+//
 // -inf is only ever added to finite values or to -inf, so no NaN arises.
 
 #pragma once
@@ -192,8 +225,16 @@ constexpr int kConsumerRegs = 32;
 constexpr int kProducerRegs = 104;
 constexpr int kMmaNt = 32 / kMmaWarps;  // 8-column product tiles a warp owns
 constexpr int kOpRow = 2 * kMmaStage + 32;  // bytes of one operand row of a stage, padded
+constexpr int kConsumerThreads = 32 * kConsumerWarps;
 constexpr int kOtStages = 2;  // the cluster wavefront's ring of outside planes
 constexpr int kMaxCluster = 16;  // blocks a cluster may have (16 is non-portable)
+// K2's cluster route: its mbarriers in each block, two of each kind (a
+// ring, indexed by step or slot parity), and the bytes reserved for them.
+constexpr int kStepMbar = 0;  // + step & 1: every block's consumers are done with the step
+constexpr int kFullMbar = 2;  // + slot: every block's producers have filled the slot
+constexpr int kFreeMbar = 4;  // + slot: every block's consumers are done with the slot
+constexpr int kPipeMbars = 6;
+constexpr int kPipeMbarBytes = 64;
 
 #ifndef CUDA_EMU
 // Barrier over the `nthreads` threads (whole warps) that use barrier `id`;
@@ -296,6 +337,49 @@ __device__ __forceinline__ T* cluster_map(T* p, int rank) {
 // wait with acquire).
 __device__ __forceinline__ void cluster_sync() {
   asm volatile("barrier.cluster.arrive.release;\n\tbarrier.cluster.wait.acquire;" ::: "memory");
+}
+
+// mbarriers in shared memory, for K2's cluster route, where one group of
+// warps has to wait for the same group in the cluster's other blocks
+// while the rest of each block is elsewhere. mbar_init sets the barrier
+// at `bar` (this block's shared memory, 8 bytes) to complete a phase
+// after `count` arrivals; one thread calls it, and mbar_init_fence makes
+// the initialisation visible to the cluster (a cluster barrier must
+// follow before any other block arrives).
+__device__ __forceinline__ void mbar_init(unsigned long long* bar, int count) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(bar);
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(a), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+// One arrival on the barrier at the same offset as `bar` in the shared
+// memory of the cluster's block `rank`, with release at cluster scope:
+// what this thread wrote before, and what the threads it passed a
+// barrier with wrote before that, is visible to a thread whose
+// mbar_wait sees the phase complete.
+__device__ __forceinline__ void mbar_arrive_cluster(unsigned long long* bar, int rank) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(bar);
+  unsigned remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(remote) : "r"(a), "r"(rank));
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];" ::"r"(remote)
+               : "memory");
+}
+// Waits, with acquire at cluster scope, until the phase of this block's
+// barrier `bar` whose parity is `parity` has completed (phases count
+// from 0 at mbar_init).
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, int parity) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(bar);
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  }
 }
 #endif
 
@@ -729,50 +813,52 @@ __host__ __device__ __forceinline__ int cluster_smem_bytes(int P, int N, bool sm
   return 4 * ((smem_h ? 1 : 0) + kOtStages) * tri_floats(0, N, P) + 4 * P + 8 * kMaxCluster;
 }
 
-// K1, launch 2, on a thread-block cluster of N blocks per problem (grid
-// N*B, cluster (N)); the design and what bounds it are in the header. The
-// block of rank r owns rows k = r, r+N, ... of H and computes H[j][k],
-// K[j][k] for those k at every step j, from its own rows of H and from
-// outside plane j, which its threads copied into a ring stage the step
-// before (each thread copies exactly the words it reads later, so its
-// cp.async wait orders them; the ring slot is rewritten only after the
-// step barrier that ends its last reads). H[j][k] goes to row j's owner:
-// through DSMEM when H is in shared memory (kSmemH), into Hg: (B, P, P)
-// f32 in device memory otherwise (written and read in this launch, so
-// neither const nor __restrict__). One cluster barrier per step, release
-// then acquire, orders step j's writes before the reads of step j-1. The
-// top level: each block's first argmax over its rows, merged in rank 0's
-// slots through DSMEM under (value desc, index asc); the barrier after the
-// merge writes is the last access of any block to another's shared
-// memory, and every block passes it before it exits. Rank 0's thread 0
-// then walks the chain from K in device memory. Inputs and outputs as
-// wavefront_kernel's.
-template <bool kSmemH>
-__global__ void __launch_bounds__(kThreads)
-wavefront_cluster_kernel(const float* __restrict__ OT, const float* __restrict__ INS,
-                         const int* __restrict__ y, const int* __restrict__ n_cand, float* Hg,
-                         int* K, int* __restrict__ best_j, int* __restrict__ best_k,
-                         int* __restrict__ chains, int P) {
-  extern __shared__ __align__(16) unsigned char segdp_dyn_smem[];
+// The cluster wavefront of one problem, on `nwarps` warps (tid
+// 0..32*nwarps-1, at most kWarps) of each block of a cluster of N blocks;
+// K1's wavefront_cluster_kernel runs it on whole blocks, K2's
+// segdp_pipelined_cluster_kernel on each block's consumer group. The
+// design and what bounds it are in the header. The block of rank r owns
+// rows k = r, r+N, ... of H and computes H[j][k], K[j][k] for those k at
+// every step j, from its own rows of H and from outside plane j, which
+// its threads copied into a ring stage the step before (each thread
+// copies exactly the words it reads later, so its cp.async wait orders
+// them; the ring slot is rewritten only after the step barrier that ends
+// its last reads). H[j][k] goes to row j's owner: through DSMEM when H is
+// in shared memory (kSmemH), into Hgb: (P, P) f32 in device memory
+// otherwise (written and read by the cluster, so neither const nor
+// __restrict__). `smem` is the body's shared memory, laid out alike in
+// every block (cluster_smem_bytes). step_sync() is the step barrier over
+// the body's threads in every block of the cluster: what they wrote
+// before it (to shared memory, theirs or another block's, and to device
+// memory) is visible to all of them after it. It orders the
+// initialisation before the first step, step j's writes before the reads
+// of step j-1, and the merge below before rank 0 reads it; `bar` (with
+// the body's thread count) is a barrier over the body's threads of this
+// block alone. The top level: each block's first argmax over its rows,
+// merged in rank 0's slots through DSMEM under (value desc, index asc);
+// the step barrier after the merge writes is the body's last access to
+// another block's shared memory. Rank 0's thread 0 then walks the chain
+// from K in device memory. OTb, INb, yb, n_cand, Kb, bj_out, bk_out and
+// chain as wavefront_body's.
+template <bool kSmemH, class StepSync>
+__device__ __forceinline__ void wavefront_cluster_body(
+    const float* OTb, const float* INb, const int* __restrict__ yb, int n_cand, float* Hgb,
+    int* Kb, int* bj_out, int* bk_out, int* chain, int P, unsigned char* smem, int tid,
+    int nwarps, int bar, StepSync step_sync) {
   __shared__ float wred_v[kWarps];
   __shared__ int wred_i[kWarps];
 
   const int N = cluster_nblocks();
   const int r = cluster_rank();
-  const int b = blockIdx.x / N;
-  const int tid = threadIdx.x;
+  const int nthreads = 32 * nwarps;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const long long PP = (long long)P * P;
-  const float* OTb = OT + b * PP * P;
-  const float* INb = INS + b * PP;
-  int* Kb = K + b * PP;
-  float* Hgb = Hg + b * PP;  // unused when kSmemH
-  const int end = n_cand[b] - 1;
+  const int end = n_cand - 1;
   const float neg = -INFINITY;
 
   const int tri = tri_floats(0, N, P);
-  float* Hs = reinterpret_cast<float*>(segdp_dyn_smem);  // kSmemH: this block's rows of H
+  float* Hs = reinterpret_cast<float*>(smem);  // kSmemH: this block's rows of H
   float* ring = Hs + (kSmemH ? tri : 0);                  // kOtStages outside planes
   int* ys = reinterpret_cast<int*>(ring + kOtStages * tri);
   float* merge_v = reinterpret_cast<float*>(ys + P);  // [rank]: the blocks' argmaxes, in rank 0
@@ -785,14 +871,14 @@ wavefront_cluster_kernel(const float* __restrict__ OT, const float* __restrict__
   // The first row this block owns below... above j: the least li with k > j.
   auto first_row = [&](int j) { return j < r ? 0 : (j - r) / N + 1; };
 
-  for (int i = tid; i < P; i += kThreads) ys[i] = y[(long long)b * P + i];
+  for (int i = tid; i < P; i += nthreads) ys[i] = yb[i];
   // H init of the rows this block owns: column `end` holds inside(k, end)
   // for k < end, -inf elsewhere; K's rows all -1.
   for (int li = 0, k = r; k < P; ++li, k += N) {
     float* row = h_row(li, k);
-    for (int q = k + 1 + tid; q < P; q += kThreads)
+    for (int q = k + 1 + tid; q < P; q += nthreads)
       row[q] = (q == end && k < end) ? INb[(long long)k * P + end] : neg;
-    for (int q = tid; q < P; q += kThreads) Kb[(long long)k * P + q] = -1;
+    for (int q = tid; q < P; q += nthreads) Kb[(long long)k * P + q] = -1;
   }
 
   // Starts the copies of plane j's live rows that this block owns (rows
@@ -803,7 +889,7 @@ wavefront_cluster_kernel(const float* __restrict__ OT, const float* __restrict__
     if (j >= 0) {
       float* st = ring + (j % kOtStages) * tri;
       const float* O = OTb + (long long)j * PP;
-      for (int li = first_row(j) + warp, k = r + li * N; k < end; li += kWarps, k += kWarps * N) {
+      for (int li = first_row(j) + warp, k = r + li * N; k < end; li += nwarps, k += nwarps * N) {
         if (ys[k] - ys[j] < kMinSegLen) continue;
         float* dst = st + tri_row_off(li, r, N, P) - (k + 1);
         for (int q = k + 1 + lane; q <= end; q += 32) cp_async_4(dst + q, O + (long long)k * P + q);
@@ -812,13 +898,13 @@ wavefront_cluster_kernel(const float* __restrict__ OT, const float* __restrict__
     cp_async_commit();
   };
 
-  cluster_sync();  // every block's rows and ys initialised before any step writes to them
+  step_sync();  // every block's rows and ys initialised before any step writes to them
   fetch(P - 2);
   for (int j = P - 2; j >= 0; --j) {
     fetch(j - 1);  // the next step's plane, in flight during this one
     cp_async_wait<kOtStages - 1>();  // this thread's copies of plane j have landed
     const float* st = ring + (j % kOtStages) * tri;
-    for (int li = first_row(j) + warp, k = r + li * N; k < end; li += kWarps, k += kWarps * N) {
+    for (int li = first_row(j) + warp, k = r + li * N; k < end; li += nwarps, k += nwarps * N) {
       if (ys[k] - ys[j] < kMinSegLen) continue;  // small(j, k): row invalid
       const float* O = st + tri_row_off(li, r, N, P) - (k + 1);
       const float* Hr = h_row(li, k);
@@ -843,7 +929,7 @@ wavefront_cluster_kernel(const float* __restrict__ OT, const float* __restrict__
         Kb[(long long)j * P + k] = bi;
       }
     }
-    cluster_sync();  // step j's writes before step j-1's reads; the stage is free again
+    step_sync();  // step j's writes before step j-1's reads; the stage is free again
   }
 
   // Top level over the rows this block owns: D0[j][k] = inside(0,j) +
@@ -854,7 +940,7 @@ wavefront_cluster_kernel(const float* __restrict__ OT, const float* __restrict__
   for (int li = 0, jj = r; jj < end; ++li, jj += N) {
     if (jj == 0 || ys[jj] - ys[0] < kMinSegLen) continue;
     const float* Hr = h_row(li, jj);
-    for (int kk = jj + 1 + tid; kk <= end; kk += kThreads) {
+    for (int kk = jj + 1 + tid; kk <= end; kk += nthreads) {
       if (ys[kk] - ys[jj] < kMinSegLen) continue;
       const int idx = jj * P + kk;
       argmax_merge(bv, bi, (INb[jj] + OTb[idx]) + Hr[kk], idx);
@@ -865,15 +951,14 @@ wavefront_cluster_kernel(const float* __restrict__ OT, const float* __restrict__
     wred_v[warp] = bv;
     wred_i[warp] = bi;
   }
-  __syncthreads();
+  group_sync(bar, nthreads);
   if (tid == 0) {
-    for (int w = 1; w < kWarps; ++w) argmax_merge(bv, bi, wred_v[w], wred_i[w]);
+    for (int w = 1; w < nwarps; ++w) argmax_merge(bv, bi, wred_v[w], wred_i[w]);
     cluster_map(merge_v, 0)[r] = bv;
     cluster_map(merge_i, 0)[r] = bi;
   }
-  // The last access of any block to another's shared memory is above:
-  // after this barrier every block may exit.
-  cluster_sync();
+  // The body's last access to another block's shared memory is above.
+  step_sync();
   if (r != 0 || tid != 0) return;
   bv = merge_v[0];
   bi = merge_i[0];
@@ -881,11 +966,10 @@ wavefront_cluster_kernel(const float* __restrict__ OT, const float* __restrict__
   const bool ok = bv > INb[end];  // baseline: inside(0, end)
   const int bj = ok ? bi / P : -1;
   const int bk = ok ? bi - (bi / P) * P : -1;
-  best_j[b] = bj;
-  best_k[b] = bk;
+  *bj_out = bj;
+  *bk_out = bk;
   Kb[(P - 1) * P] = bj;
   if (P > 1) Kb[(P - 1) * P + 1] = bk;
-  int* chain = chains + (long long)b * (P + 2);
   chain[0] = bj;
   chain[1] = bk;
   int j = bj, kk = bk;
@@ -902,6 +986,28 @@ wavefront_cluster_kernel(const float* __restrict__ OT, const float* __restrict__
       kk = nxt;
     }
   }
+}
+
+// K1, launch 2, on a thread-block cluster of N blocks per problem (grid
+// N*B, cluster (N)): wavefront_cluster_body on every thread of the
+// cluster, the step barrier the cluster barrier (release then acquire),
+// which every block also passes after the merge, its last access to
+// another block's shared memory, before it exits. Hg: (B, P, P) f32, the
+// problems' H planes when H is in device memory (not kSmemH). Inputs and
+// outputs as wavefront_kernel's.
+template <bool kSmemH>
+__global__ void __launch_bounds__(kThreads)
+wavefront_cluster_kernel(const float* __restrict__ OT, const float* __restrict__ INS,
+                         const int* __restrict__ y, const int* __restrict__ n_cand, float* Hg,
+                         int* K, int* __restrict__ best_j, int* __restrict__ best_k,
+                         int* __restrict__ chains, int P) {
+  extern __shared__ __align__(16) unsigned char segdp_dyn_smem[];
+  const int b = blockIdx.x / cluster_nblocks();
+  const long long PP = (long long)P * P;
+  wavefront_cluster_body<kSmemH>(OT + b * PP * P, INS + b * PP, y + (long long)b * P, n_cand[b],
+                                 Hg + b * PP, K + b * PP, best_j + b, best_k + b,
+                                 chains + (long long)b * (P + 2), P, segdp_dyn_smem, threadIdx.x,
+                                 kWarps, 0, [] { cluster_sync(); });
 }
 
 // The wavefront's latency floor: `steps` rounds of the cluster barrier
@@ -984,6 +1090,107 @@ segdp_pipelined_kernel(const int* __restrict__ Cs, const int* __restrict__ Thi,
       group_arrive(kFreeBar + s, kPipeThreads);
     }
   }
+}
+
+// Dynamic shared memory of a block of K2's cluster route at width P on N
+// blocks a cluster: the producers' PairSmem<128>, the mbarriers, and the
+// consumers' cluster wavefront (cluster_smem_bytes), in that order.
+__host__ __device__ __forceinline__ int pipelined_cluster_smem_bytes(int P, int N, bool smem_h) {
+  return (int)sizeof(PairSmem<2 * kTile>) + kPipeMbarBytes + cluster_smem_bytes(P, N, smem_h);
+}
+
+// K2's route for wide problems, grid (N*G) in G thread-block clusters of N
+// blocks, kPipeThreads threads a block: threads below kMmaThreads produce,
+// the rest consume (design in the header). Cluster c solves problems c,
+// c+G, c+2G, ... in turn, into its two scratch slots OT: (G, 2, P, P, P)
+// and INS: (G, 2, P, P) (not restrict: written and read within the
+// launch). The producers of the block of rank r run pair_stats_mma_body
+// for the middle indices k = r, r+N, ... of the cluster's problem: exactly
+// the rows of the outside planes and the columns of inside that this
+// block's consumers read, but for inside(k, end), which the block that
+// owns `end` writes. So a slot is full when every block's producers are
+// done with it, and free when every block's consumers are: each block
+// keeps one "full" and one "free" mbarrier per slot, and after its group's
+// named barrier thread q of each block's producers (consumers) arrives on
+// rank q's, N arrivals a phase, the N remote arrivals (each a release at
+// cluster scope) side by side. The consumers run wavefront_cluster_body on
+// the full slot, with H in the cluster's shared memory (kSmemH) or in Hg:
+// (G, P, P) f32, cluster c's plane (not restrict, as OT); their step
+// barrier is a pair of mbarriers used in turn, on which the consumers
+// arrive the same way after their group's named barrier, so that a block
+// that is a step ahead never arrives on a barrier another block is still
+// waiting on. Problem t of a cluster waits for phase t/2 of slot t%2's
+// "full", and its producers for phase t/2-1 of the slot's "free". Every
+// thread of the cluster passes one cluster barrier after the barriers'
+// initialisation and one before it exits, so no block arrives on another's
+// barriers before they exist or after it has gone.
+// Dynamic shared memory: pipelined_cluster_smem_bytes.
+template <bool kSmemH>
+__global__ void __launch_bounds__(kPipeThreads, 1)
+segdp_pipelined_cluster_kernel(const int* __restrict__ Cs, const int* __restrict__ Thi,
+                               const int* __restrict__ Tlo, const int* __restrict__ Wt,
+                               const int* __restrict__ wsum, const int* __restrict__ wmax,
+                               const int* __restrict__ y, const int* __restrict__ n_cand,
+                               float* OT, float* INS, float* Hg, int* K,
+                               int* __restrict__ best_j, int* __restrict__ best_k,
+                               int* __restrict__ chains, int B, int P, int R,
+                               int read_support) {
+  extern __shared__ __align__(16) unsigned char segdp_dyn_smem[];
+  auto* pair = reinterpret_cast<PairSmem<2 * kTile>*>(segdp_dyn_smem);
+  unsigned long long* bars =
+      reinterpret_cast<unsigned long long*>(segdp_dyn_smem + sizeof(PairSmem<2 * kTile>));
+  unsigned char* wave = segdp_dyn_smem + sizeof(PairSmem<2 * kTile>) + kPipeMbarBytes;
+  const int N = cluster_nblocks();
+  const int r = cluster_rank();
+  const int c = blockIdx.x / N;
+  const int G = gridDim.x / N;
+  const int tid = threadIdx.x;
+  const long long PP = (long long)P * P;
+  const long long PPP = PP * P;
+
+  if (tid == 0)
+    for (int i = 0; i < kPipeMbars; ++i) mbar_init(&bars[i], N);
+  mbar_init_fence();
+  cluster_sync();  // every block's barriers are set up before any arrival
+
+  if (tid < kMmaThreads) {
+    for (int t = 0, b = c; b < B; ++t, b += G) {
+      const int s = t & 1;
+      if (t >= 2) mbar_wait(&bars[kFreeMbar + s], ((t >> 1) - 1) & 1);  // problem t-2 has left
+      const long long slot = 2LL * c + s;
+      const int end = n_cand[b] - 1;
+      const int ws = wsum[b], wm = wmax[b];
+      for (int k = r; k <= end; k += N)
+        pair_stats_mma_body<2 * kTile>(Cs + (long long)b * P * R, Thi + b * PP, Tlo + b * PP,
+                                       Wt + (long long)b * R, ws, wm, OT + slot * PPP,
+                                       INS + slot * PP, k, end, P, R, read_support, tid,
+                                       kProducerBar, pair);
+      group_sync(kProducerBar, kMmaThreads);  // this block's part of the slot is written
+      if (tid < N) mbar_arrive_cluster(&bars[kFullMbar + s], tid);
+    }
+  } else {
+    const int ctid = tid - kMmaThreads;
+    int step = 0;
+    auto step_sync = [&] {
+      group_sync(kConsumerBar, kConsumerThreads);  // this block's consumers are done
+      unsigned long long* bar = &bars[kStepMbar + (step & 1)];
+      if (ctid < N) mbar_arrive_cluster(bar, ctid);
+      mbar_wait(bar, (step >> 1) & 1);
+      ++step;
+    };
+    for (int t = 0, b = c; b < B; ++t, b += G) {
+      const int s = t & 1;
+      mbar_wait(&bars[kFullMbar + s], (t >> 1) & 1);
+      const long long slot = 2LL * c + s;
+      wavefront_cluster_body<kSmemH>(OT + slot * PPP, INS + slot * PP, y + (long long)b * P,
+                                     n_cand[b], Hg + c * PP, K + b * PP, best_j + b,
+                                     best_k + b, chains + (long long)b * (P + 2), P, wave, ctid,
+                                     kConsumerWarps, kConsumerBar, step_sync);
+      group_sync(kConsumerBar, kConsumerThreads);  // rank 0's chain walk included
+      if (ctid < N) mbar_arrive_cluster(&bars[kFreeMbar + s], ctid);
+    }
+  }
+  cluster_sync();  // no block exits while another may still arrive on its barriers
 }
 
 }  // namespace segdp

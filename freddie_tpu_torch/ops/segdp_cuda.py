@@ -35,7 +35,14 @@ bounds each on the H100 in ``csrc/segdp_kernels.cuh``):
   their problems from a counter on the card. Bound like K1's
   phase 1, by instruction issue in the indicator build. A block's shared
   memory holds the phase-1 slots beside H up to ``K2_SMEM_MAX_P``; above
-  it each block's H is a plane of its own in device memory.
+  it each block's H is a plane of its own in device memory. From
+  ``K2_CLUSTER_MIN_P`` on, K2 runs by shape on its cluster route: one
+  persistent thread-block cluster of N = 16 or 8 blocks per problem
+  (``k2_cluster_size_for``), each block's producers running phase 1 for
+  every N-th middle index and its consumers K1's cluster wavefront on the
+  rows those producers wrote, the slots changing hands through mbarriers
+  across the cluster; past what that route's shared memory takes
+  (``k2_cluster_max_p(16)``) the one-block route takes P again.
 
 Both kernels take every P whose scratch fits the card (K1 up to
 ``cluster_max_p``, where its ring of outside planes still fits a
@@ -67,11 +74,13 @@ from .segdp import _solve_batch_torch, _walk_chains, threshold_products
 
 # Kernel launches made through solve_batch_cuda, one per solved batch:
 # K1's (its two launches, over every group of the batch, count once) and
-# K2's; of K1's, the ones whose wavefront ran on clusters; and of both,
-# the ones whose wavefront held H in device memory.
+# K2's; of K1's, the ones whose wavefront ran on clusters, and of K2's,
+# the ones on its cluster route; and of both, the ones whose wavefront
+# held H in device memory.
 LAUNCHES = 0
 PIPELINED_LAUNCHES = 0
 CLUSTER_LAUNCHES = 0
+PIPELINED_CLUSTER_LAUNCHES = 0
 DEVICE_H_LAUNCHES = 0
 PIPELINED_DEVICE_H_LAUNCHES = 0
 # The (B, P, R) of K1's latest launches as the caller gave them, oldest
@@ -89,6 +98,8 @@ _PIPE_BLOCKS: dict[tuple[int, int, bool], tuple[int, int, int, int]] = {}
 # The same for K1's cluster wavefront, by (device index, P, N, H in shared
 # memory): clusters resident at once, shared memory per block, registers.
 _CLUSTER_OCC: dict[tuple[int, int, int, bool], tuple[int, int, int]] = {}
+# And for K2's cluster route.
+_K2_CLUSTER_OCC: dict[tuple[int, int, int, bool], tuple[int, int, int]] = {}
 
 # The widest problem K1's one-block wavefront (wavefront_kernel) takes
 # (240): H (4 P^2 B) and ys (4 P B) fit _MAX_SMEM up to here, 4 P^2 + 4 P
@@ -128,10 +139,12 @@ def cluster_smem_bytes(P: int, N: int, smem_h: bool) -> int:
 
 
 @functools.cache
-def _widest(N: int, smem_h: bool) -> int:
-    """The widest P whose cluster_smem_bytes fit a block."""
+def _widest(N: int, smem_h: bool, pipelined: bool = False) -> int:
+    """The widest P whose cluster_smem_bytes (pipelined:
+    k2_cluster_smem_bytes) fit a block."""
+    size = k2_cluster_smem_bytes if pipelined else cluster_smem_bytes
     P = 1
-    while cluster_smem_bytes(P + 1, N, smem_h) <= _MAX_SMEM:
+    while size(P + 1, N, smem_h) <= _MAX_SMEM:
         P += 1
     return P
 
@@ -151,18 +164,54 @@ def cluster_max_p(N: int | None = None) -> int:
 # PairSmem<128> (sizeof in the .cuh), H, ys and 16 B of hand-off state.
 _PAIR_SMEM_WIDE = 2 * 128 * 32 * 8 + 2 * 128 * 160 + 128 * 8
 K2_SMEM_MAX_P = (math.isqrt(_MAX_SMEM - _PAIR_SMEM_WIDE - 16 + 1) - 1) // 2
+_MBAR_BYTES = 64  # kPipeMbarBytes: K2's cluster route's mbarriers
+
+# K2 runs on its cluster route (segdp_pipelined_cluster_kernel) by shape
+# from this width on, and on one block per SM below it. On one H100 the
+# cluster route's launch took less device time than the one-block route's
+# at every (P, B) of chip_smoke's K2 sweep, from P = 96 (its narrowest)
+# up, B = 1 and 8 and the stage's full chunks at P = 96 and 128 included.
+K2_CLUSTER_MIN_P = 96
+# K2's cluster route takes WIDE_CLUSTER_SIZE blocks a cluster while the
+# batch needs at most this many problems per resident cluster of that
+# size (k2_cluster_size_for): on one H100, 16 blocks beat 8 on the
+# launch's device time at B = 1 at every width and at the P = 256 chunk
+# of 16 problems on 7 clusters, and lost at the P = 96 and 128 chunks (128
+# and 64 problems).
+K2_WIDE_PROBLEMS_PER_CLUSTER = 3
+
+
+def k2_cluster_smem_bytes(P: int, N: int, smem_h: bool) -> int:
+    """Dynamic shared memory of a block of K2's cluster route
+    (pipelined_cluster_smem_bytes in the .cuh): the producers'
+    PairSmem<128>, the mbarriers and K1's cluster wavefront layout."""
+    return _PAIR_SMEM_WIDE + _MBAR_BYTES + cluster_smem_bytes(P, N, smem_h)
+
+
+def k2_cluster_smem_max_p(N: int | None = None) -> int:
+    """The widest P whose H stays in the shared memory of K2's cluster
+    route on N blocks (default ``WIDE_CLUSTER_SIZE``)."""
+    return _widest(N or WIDE_CLUSTER_SIZE, True, True)
+
+
+def k2_cluster_max_p(N: int | None = None) -> int:
+    """The widest P K2's cluster route takes on N blocks (default
+    ``WIDE_CLUSTER_SIZE``) at all: its ring of outside planes still fits a
+    block beside the phase-1 slots (H in device memory)."""
+    return _widest(N or WIDE_CLUSTER_SIZE, False, True)
 
 # Device memory the kernels' scratch may hold at once (the budget of
 # ops.segdp.suggested_batch_size); read at call time.
 SCRATCH_BUDGET = 4 << 30
 
 
-def scratch_bytes(P: int, pipelined: bool = False, smem_max_p: int | None = None) -> int:
-    """Scratch of one K1 problem or one K2 block at width P: the outside
-    tensor (P^3 f32; K2 has two slots), inside (P^2; two) and, when P is
-    above the shared-memory cap (K1: its cluster wavefront's at
-    ``CLUSTER_SIZE``), H (P^2)."""
-    return _unit_bytes(P, pipelined, P > _cap(pipelined, smem_max_p))
+def scratch_bytes(P: int, pipelined: bool = False, smem_max_p: int | None = None,
+                  N: int | None = None) -> int:
+    """Scratch of one K1 problem, one K2 block or one cluster of K2's
+    cluster route at width P: the outside tensor (P^3 f32; K2 has two
+    slots), inside (P^2; two) and, when P is above the shared-memory cap
+    (``_cap``), H (P^2)."""
+    return _unit_bytes(P, pipelined, P > _cap(pipelined, smem_max_p, N))
 
 
 def _unit_bytes(P: int, pipelined: bool, device_h: bool) -> int:
@@ -171,11 +220,12 @@ def _unit_bytes(P: int, pipelined: bool, device_h: bool) -> int:
 
 
 def group_size(n: int, P: int, pipelined: bool = False, smem_max_p: int | None = None,
-               budget: int | None = None) -> int:
-    """How many of ``n`` K1 problems (or K2 blocks) keep their scratch at
-    once: the most whose ``scratch_bytes`` fit ``budget`` (default
-    ``SCRATCH_BUDGET``), never fewer than one."""
-    return _fit(n, scratch_bytes(P, pipelined, smem_max_p), budget)
+               budget: int | None = None, N: int | None = None) -> int:
+    """How many of ``n`` K1 problems (or K2 blocks, or clusters of its
+    cluster route on N blocks) keep their scratch at once: the most whose
+    ``scratch_bytes`` fit ``budget`` (default ``SCRATCH_BUDGET``), never
+    fewer than one."""
+    return _fit(n, scratch_bytes(P, pipelined, smem_max_p, N), budget)
 
 
 def _fit(n: int, unit: int, budget: int | None = None) -> int:
@@ -185,9 +235,14 @@ def _fit(n: int, unit: int, budget: int | None = None) -> int:
 
 def _cap(pipelined: bool, smem_max_p: int | None, N: int | None = None) -> int:
     """The widest P whose H stays in shared memory: the kernel's own limit
-    (K1: its cluster wavefront's on N blocks, default ``CLUSTER_SIZE``),
-    or a lower cap the caller gives (0 puts H in device memory at any P)."""
-    top = K2_SMEM_MAX_P if pipelined else cluster_smem_max_p(N)
+    (K1: its cluster wavefront's on N blocks, default ``CLUSTER_SIZE``;
+    K2: its one-block route's, or with N its cluster route's on N
+    blocks), or a lower cap the caller gives (0 puts H in device memory
+    at any P)."""
+    if pipelined:
+        top = k2_cluster_smem_max_p(N) if N else K2_SMEM_MAX_P
+    else:
+        top = cluster_smem_max_p(N)
     if smem_max_p is None:
         return top
     if not 0 <= smem_max_p <= top:
@@ -207,6 +262,12 @@ def _lib() -> ctypes.CDLL:
         ctypes.c_void_p
     ]
     lib.segdp_solve_pipelined.restype = ctypes.c_int
+    lib.segdp_solve_pipelined_cluster.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 7 + [
+        ctypes.c_void_p
+    ]
+    lib.segdp_solve_pipelined_cluster.restype = ctypes.c_int
+    lib.segdp_pipelined_cluster_occupancy.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.segdp_pipelined_cluster_occupancy.restype = ctypes.c_int
     lib.segdp_pipelined_occupancy.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.segdp_pipelined_occupancy.restype = ctypes.c_int
     lib.segdp_cluster_occupancy.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
@@ -261,16 +322,33 @@ def cluster_occupancy(P: int, N: int | None = None, smem_max_p: int | None = Non
     (cudaOccupancyMaxActiveClusters), ``smem_bytes`` per block (static +
     dynamic) and ``registers`` per thread. Queried once per (device, P, N,
     home of H)."""
-    N = N or CLUSTER_SIZE
-    smem_h = P <= _cap(False, smem_max_p, N)
+    return _cluster_occupancy(False, P, N or CLUSTER_SIZE, smem_max_p)
+
+
+def _cluster_occupancy(pipelined: bool, P: int, N: int, smem_max_p: int | None):
+    """cluster_occupancy (K1) or k2_cluster_occupancy (pipelined), queried
+    once per (device, P, N, home of H)."""
+    smem_h = P <= _cap(pipelined, smem_max_p, N)
+    cache = _K2_CLUSTER_OCC if pipelined else _CLUSTER_OCC
     key = (torch.cuda.current_device(), P, N, smem_h)
-    if key not in _CLUSTER_OCC:
+    if key not in cache:
         lib = _lib()
+        query = lib.segdp_pipelined_cluster_occupancy if pipelined else lib.segdp_cluster_occupancy
         out = (ctypes.c_int * 3)()
-        _raise_on(lib, lib.segdp_cluster_occupancy(P, N, int(smem_h), ctypes.addressof(out)),
-                  "K1 cluster occupancy query")
-        _CLUSTER_OCC[key] = tuple(out)
-    return dict(zip(("max_active_clusters", "smem_bytes", "registers"), _CLUSTER_OCC[key]))
+        _raise_on(lib, query(P, N, int(smem_h), ctypes.addressof(out)),
+                  f"{'K2' if pipelined else 'K1'} cluster occupancy query")
+        cache[key] = tuple(out)
+    return dict(zip(("max_active_clusters", "smem_bytes", "registers"), cache[key]))
+
+
+def k2_cluster_occupancy(P: int, N: int | None = None, smem_max_p: int | None = None
+                         ) -> dict[str, int]:
+    """What the runtime reports for K2's cluster route at width P on
+    clusters of N blocks (default ``WIDE_CLUSTER_SIZE``) on the current
+    device, H in shared memory up to the cap: ``max_active_clusters``,
+    ``smem_bytes`` per block and ``registers`` per thread, as
+    ``cluster_occupancy`` reports them for K1."""
+    return _cluster_occupancy(True, P, N or WIDE_CLUSTER_SIZE, smem_max_p)
 
 
 def cluster_barrier_probe(B: int, N: int, steps: int) -> None:
@@ -288,6 +366,14 @@ def pipelined_grid(B: int, P: int, smem_max_p: int | None = None) -> int:
     gives scratch for, at most B, at least 1."""
     occ = pipelined_occupancy(P, smem_max_p)
     return group_size(min(B, occ["sms"] * occ["blocks_per_sm"]), P, True, smem_max_p)
+
+
+def pipelined_cluster_grid(B: int, P: int, N: int, smem_max_p: int | None = None) -> int:
+    """The clusters of K2's cluster route on N blocks for B problems at
+    width P on the current device: as many as are resident at once and
+    as ``SCRATCH_BUDGET`` gives scratch for, at most B, at least 1."""
+    occ = k2_cluster_occupancy(P, N, smem_max_p)
+    return group_size(min(B, max(1, occ["max_active_clusters"])), P, True, smem_max_p, N=N)
 
 
 def _scratch(n: int, P: int, pipelined: bool, cap: int, dev):
@@ -378,6 +464,52 @@ def _k1_route(P: int, smem_max_p: int | None, cluster_size: int | None,
     return N, cap
 
 
+def k2_cluster_size_for(B: int, P: int, smem_max_p: int | None = None) -> int:
+    """The blocks per cluster of K2's cluster route for B problems at
+    width P on the current device: WIDE_CLUSTER_SIZE where CLUSTER_SIZE
+    blocks cannot take P, or where the route takes P on that many blocks
+    (within the cap, if given) and the batch needs at most
+    K2_WIDE_PROBLEMS_PER_CLUSTER problems per cluster of that size the
+    runtime keeps resident at once; else CLUSTER_SIZE."""
+    N = WIDE_CLUSTER_SIZE
+    if P > k2_cluster_max_p(CLUSTER_SIZE):
+        return N
+    if (smem_max_p is None or smem_max_p <= k2_cluster_smem_max_p(N)) and B <= (
+            K2_WIDE_PROBLEMS_PER_CLUSTER
+            * k2_cluster_occupancy(P, N, smem_max_p)["max_active_clusters"]):
+        return N
+    return CLUSTER_SIZE
+
+
+def _k2_route(P: int, smem_max_p: int | None, cluster_size: int | None,
+              wide_size=lambda: WIDE_CLUSTER_SIZE) -> tuple[int, int]:
+    """K2's route at width P: (N, cap), N the blocks per cluster of its
+    cluster route (0: the one-block route) and cap the widest P whose H
+    stays in shared memory. By shape unless ``cluster_size`` forces a
+    route: from ``K2_CLUSTER_MIN_P`` on the cluster route on
+    ``wide_size()`` blocks (solve_batch_cuda passes k2_cluster_size_for)
+    wherever that route takes P, the one-block route elsewhere;
+    ``cluster_size`` 0 takes the one-block route, N >= 1 the cluster route
+    on N blocks, at any P either takes."""
+    if cluster_size is None:
+        if P < K2_CLUSTER_MIN_P:
+            return 0, _cap(True, smem_max_p)
+        N = wide_size()
+        if P > k2_cluster_max_p(N):
+            return 0, _cap(True, smem_max_p)
+    elif cluster_size == 0:
+        return 0, _cap(True, smem_max_p)
+    elif 1 <= cluster_size <= MAX_CLUSTER:
+        N = cluster_size
+        if P > k2_cluster_max_p(N):
+            raise ValueError(f"P={P}: K2's cluster route on {N} blocks takes P up to "
+                             f"{k2_cluster_max_p(N)} (its ring and phase-1 slots must fit a "
+                             "block)")
+    else:
+        raise ValueError(f"cluster_size={cluster_size}: 0 or 1..{MAX_CLUSTER}")
+    return N, _cap(True, smem_max_p, N)
+
+
 def solve_batch_cuda(C, y, W, n_cand, read_support, lookup, scale, pipelined=False,
                      with_chains=False, smem_max_p=None, cluster_size=None):
     """Same contract as ``ops.segdp._solve_batch_torch`` and
@@ -390,20 +522,25 @@ def solve_batch_cuda(C, y, W, n_cand, read_support, lookup, scale, pipelined=Fal
     -1-terminated breakpoint chains to the result: both kernels walk them
     themselves; the CPU route takes ``_walk_chains``. K1's wavefront runs
     by shape (``CLUSTER_MIN_P``; the cluster's size by
-    ``cluster_size_for``); ``cluster_size`` forces a route (0: one block
-    per problem; N: clusters of N blocks, which is how the tests reach the
-    cluster kernel at small P). The wavefront keeps H in shared
+    ``cluster_size_for``), and so does K2 (``K2_CLUSTER_MIN_P``;
+    ``k2_cluster_size_for``); ``cluster_size`` forces a route (0: one
+    block per problem, K2's one block per SM; N: clusters of N blocks,
+    which is how the tests reach the cluster kernels at small P). The
+    wavefront keeps H in shared
     memory up to ``smem_max_p`` (default: the widest that fits,
     ``cluster_smem_max_p()`` for K1's clusters, ``K1_SMEM_MAX_P`` for its
-    one block, ``K2_SMEM_MAX_P`` for K2; a lower cap, 0 included, puts H
-    in device memory, K1's on the cluster route) and in device memory
-    above. Raises ValueError when one problem's scratch cannot be
-    allocated, or when P is past what K1's cluster kernel takes
-    (``cluster_max_p``); a launch the runtime refuses raises
-    RuntimeError."""
+    one block, ``K2_SMEM_MAX_P`` for K2's one block,
+    ``k2_cluster_smem_max_p(N)`` for its clusters; a lower cap, 0
+    included, puts H in device memory, K1's on the cluster route) and in
+    device memory above. Raises ValueError when one problem's scratch
+    cannot be allocated, or when P is past what a forced cluster route
+    takes (``cluster_max_p``, ``k2_cluster_max_p``); a launch the runtime
+    refuses raises RuntimeError."""
     global LAUNCHES, PIPELINED_LAUNCHES, CLUSTER_LAUNCHES, DEVICE_H_LAUNCHES
-    global PIPELINED_DEVICE_H_LAUNCHES
+    global PIPELINED_DEVICE_H_LAUNCHES, PIPELINED_CLUSTER_LAUNCHES
     if C.device.type == "cpu":
+        if cluster_size is not None:  # a forced route is refused here as on the card
+            (_k2_route if pipelined else _k1_route)(C.shape[1], smem_max_p, cluster_size)
         res = _solve_batch_torch(C, y, W, n_cand, read_support, lookup, scale)
         return res + (_walk_chains(*res),) if with_chains else res
     if C.device.type != "cuda":
@@ -420,9 +557,8 @@ def solve_batch_cuda(C, y, W, n_cand, read_support, lookup, scale, pipelined=Fal
     if not 0 <= int(read_support) < 2**31:
         raise ValueError(f"read_support {read_support} out of int32 range")
     if pipelined:
-        if cluster_size is not None:
-            raise ValueError("cluster_size is K1's: K2 runs its wavefront in its own blocks")
-        N, cap = 0, _cap(True, smem_max_p)
+        N, cap = _k2_route(P, smem_max_p, cluster_size,
+                           lambda: k2_cluster_size_for(B, P, smem_max_p))
     else:
         N, cap = _k1_route(P, smem_max_p, cluster_size,
                            lambda: cluster_size_for(B, P, smem_max_p))
@@ -440,7 +576,16 @@ def solve_batch_cuda(C, y, W, n_cand, read_support, lookup, scale, pipelined=Fal
 
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if pipelined:
+        if pipelined and N:
+            G, (OT, INS, H) = _scratch(pipelined_cluster_grid(B, P, N, cap), P, True, cap, dev)
+            err = lib.segdp_solve_pipelined_cluster(
+                Cs.data_ptr(), T_hi.data_ptr(), T_lo.data_ptr(), Wi.data_ptr(),
+                w_sum.data_ptr(), w_max.data_ptr(), y.data_ptr(), n_cand.data_ptr(),
+                OT.data_ptr(), INS.data_ptr(), ptr(H), K.data_ptr(), best_j.data_ptr(),
+                best_k.data_ptr(), chains.data_ptr(), B, P, R, int(read_support), G, N, cap,
+                stream,
+            )
+        elif pipelined:
             G, (OT, INS, H) = _scratch(pipelined_grid(B, P, cap), P, True, cap, dev)
             queue = torch.zeros(1, dtype=torch.int32, device=dev)  # the blocks' work counter
             err = lib.segdp_solve_pipelined(
@@ -471,6 +616,7 @@ def solve_batch_cuda(C, y, W, n_cand, read_support, lookup, scale, pipelined=Fal
     _raise_on(lib, err, f"segdp{'_pipelined' if pipelined else ''} kernel launch")
     if pipelined:
         PIPELINED_LAUNCHES += 1
+        PIPELINED_CLUSTER_LAUNCHES += N > 0
         PIPELINED_DEVICE_H_LAUNCHES += P > cap
     else:
         LAUNCHES += 1

@@ -10,11 +10,17 @@ At the shape given (default: the kernel benchmark's 2048,64,512), from
   ``segdp_cuda.CLUSTER_MIN_P``, ``wavefront_cluster_kernel``), and what
   is left of the whole ``solve_batch_cuda`` call, the wrapper's torch
   prologue;
-- K2 (at every P: above K2_SMEM_MAX_P its H is in device memory): its
-  one launch's device time beside the whole call, what the runtime
-  reports for it (blocks per SM, registers, shared memory, grid), and
-  its tail: the whole call at B = G, 2G, 8G and B problems (G its
-  grid) beside K1 and a step model.
+- K2 on the route it takes by shape: its one launch's device time
+  beside the whole call and what the runtime reports for it -- on the
+  one-block route (below ``segdp_cuda.K2_CLUSTER_MIN_P``; above
+  K2_SMEM_MAX_P its H is in device memory) blocks per SM, registers,
+  shared memory and grid, on the cluster route
+  (``segdp_pipelined_cluster_kernel``) the blocks a cluster, resident
+  clusters, registers, shared memory and the clusters it runs on; from
+  K2_CLUSTER_MIN_P on also the one-block route's launch and occupancy at
+  the same shape, forced, beside it; and its tail: the whole call at
+  B = G, 2G, 8G and B problems (G its grid) beside K1 and a step
+  model.
 
 The kernels run only on a card: ``--device cpu`` is refused.
 """
@@ -34,7 +40,7 @@ from ..ops import segdp_cuda
 from ..ops.segdp import ScaledThresholds, to_device
 
 KERNELS = ("pair_stats_kernel", "wavefront_kernel", "wavefront_cluster_kernel",
-           "segdp_pipelined_kernel")
+           "segdp_pipelined_kernel", "segdp_pipelined_cluster_kernel")
 
 
 def _device_us(evt) -> float:
@@ -74,14 +80,25 @@ def device_ms_by_kernel(calls, reps: int = 3) -> dict[str, float]:
     return out
 
 
+def k2_grid(B: int, P: int) -> tuple[int, int]:
+    """K2's route by shape for B problems of width P on this card: (N,
+    G), N its blocks a cluster (0: the one-block route) and G its grid in
+    blocks or clusters."""
+    N, cap = segdp_cuda._k2_route(P, None, None, lambda: segdp_cuda.k2_cluster_size_for(B, P))
+    if N:
+        return N, segdp_cuda.pipelined_cluster_grid(B, P, N, cap)
+    return 0, segdp_cuda.pipelined_grid(B, P)
+
+
 def k2_tail(dev, P: int, R: int, B_full: int, lookup, scale) -> dict:
     """K2's whole call at B = G, 2G, 8G and B_full problems of width P (G
-    its grid on this card) beside K1 and beside a step model: a block
-    takes about ceil(B/G) problems in turn, so T(B) = T(G) + (ceil(B/G) -
-    1) * p with the step p read off T(8G). What a measured time has above
-    the model is the tail: blocks that wait for the last one. Returns G,
-    the step and one row per B (medians of TIMED_REPS, ms)."""
-    G = segdp_cuda.pipelined_grid(65535, P)
+    its grid on this card, in blocks or clusters) beside K1 and beside a
+    step model: a block (cluster) takes about ceil(B/G) problems in turn,
+    so T(B) = T(G) + (ceil(B/G) - 1) * p with the step p read off T(8G).
+    What a measured time has above the model is the tail: blocks that
+    wait for the last one. Returns G, the step and one row per B (medians
+    of TIMED_REPS, ms)."""
+    G = k2_grid(65535, P)[1]
     sizes = (G, 2 * G, 8 * G, B_full)
     k1_ms, k2_ms = {}, {}
     for B in sizes:
@@ -116,12 +133,28 @@ def profile_shape(dev, shape, log=print) -> dict:
         f"{out['k1_prologue_ms']} ms; on {card}")
     k2_call = time_ms(lambda: segdp_cuda.solve_batch_cuda(*args, pipelined=True))
     k2 = device_ms_by_kernel([lambda: segdp_cuda.solve_batch_cuda(*args, pipelined=True)])
-    out.update(k2_call_ms=k2_call, k2_launch_ms=k2.get("segdp_pipelined_kernel"),
-               k2_occupancy=segdp_cuda.pipelined_occupancy(P),
-               k2_grid=segdp_cuda.pipelined_grid(B, P))
-    log(f"[phases] K2 at B,P,R={shape}: whole call {k2_call:.3f} ms, its launch "
+    N, G = k2_grid(B, P)
+    out.update(k2_call_ms=k2_call, k2_cluster_size=N, k2_grid=G,
+               k2_launch_ms=k2.get("segdp_pipelined_cluster_kernel" if N
+                                   else "segdp_pipelined_kernel"),
+               k2_occupancy=(segdp_cuda.k2_cluster_occupancy(P, N) if N
+                             else segdp_cuda.pipelined_occupancy(P)))
+    route = f"cluster route, {G} clusters of {N} blocks" if N else f"one-block route, grid {G}"
+    log(f"[phases] K2 at B,P,R={shape} ({route}): whole call {k2_call:.3f} ms, its launch "
         f"{out['k2_launch_ms']} ms on the device; the runtime reports "
-        f"{json.dumps(out['k2_occupancy'])}, grid {out['k2_grid']}; on {card}")
+        f"{json.dumps(out['k2_occupancy'])}; on {card}")
+    if P >= segdp_cuda.K2_CLUSTER_MIN_P:
+        def one():
+            return segdp_cuda.solve_batch_cuda(*args, pipelined=True, cluster_size=0)
+
+        out.update(k2_one_block_call_ms=time_ms(one),
+                   k2_one_block_launch_ms=device_ms_by_kernel([one]).get("segdp_pipelined_kernel"),
+                   k2_one_block_occupancy=segdp_cuda.pipelined_occupancy(P))
+        log(f"[phases] K2's one-block route at B,P,R={shape} (forced): whole call "
+            f"{out['k2_one_block_call_ms']:.3f} ms, its launch {out['k2_one_block_launch_ms']} "
+            f"ms on the device; the runtime reports "
+            f"{json.dumps(out['k2_one_block_occupancy'])}, grid "
+            f"{segdp_cuda.pipelined_grid(B, P)}; on {card}")
     out["k2_tail"] = tail = k2_tail(dev, P, R, B, args[5], args[6])
     for r in tail["rows"]:
         log(f"[phases] K2 tail, B={r['B']} (G={tail['G']}, {r['steps']} steps) P={P} R={R}: "

@@ -10,13 +10,19 @@
 // per-warp slots between two warp barriers, and so do the fragments of the
 // tensor-core step (mma_m16n8k32_s8); cp.async copies at once.
 //
-// Thread-block clusters: emu_launch(..., cluster = N) runs the N blocks
-// of each cluster (consecutive blockIdx.x) at once, group c holding rank
-// c; cluster_sync is one std::barrier over every thread of the cluster;
-// cluster_map maps a pointer into the block's dynamic shared memory to
-// the same offset in rank r's. A block's dynamic shared memory is filled
-// with garbage again when it exits, so that a block that reads or writes
-// another's after that one has gone on shows.
+// Thread-block clusters: emu_launch(..., concurrent, cluster = N) runs
+// `concurrent` clusters at once, the N blocks of each (consecutive
+// blockIdx.x) together, group c holding rank c % N of the running cluster
+// c / N; cluster_sync is one std::barrier over every thread of the
+// cluster; cluster_map maps a pointer into the block's dynamic shared
+// memory to the same offset in rank r's. A block's dynamic shared memory
+// is filled with garbage again when it exits, so that a block that reads
+// or writes another's after that one has gone on shows. An mbarrier
+// (mbar_init, mbar_arrive_cluster, mbar_wait) is its 8 bytes of shared
+// memory, updated atomically: a tag, the phases completed, the arrivals
+// the phase still needs and the count, so that an arrival on or a wait at
+// a barrier that is garbage (never set up, or its block has exited)
+// aborts, and so does a wait that sees no phase complete in 60 s.
 //
 // emu_launch runs `concurrent` blocks of a launch at once, each a group of
 // threads with a state of its own (EmuBlock: its barriers, its warps'
@@ -33,6 +39,7 @@
 #include <atomic>
 #include <barrier>
 #include <chrono>
+#include <condition_variable>
 #include <cmath>
 #include <cstdio>
 #include <cstdlib>
@@ -135,11 +142,15 @@ void reg_release() {}
 template <int N>
 void reg_take() {}
 
-// Clusters: the launch's blocks per cluster, each rank's state, and the
-// barrier of all their threads.
+// Clusters: the launch's blocks per cluster, every running block's state
+// (the running clusters' ranks in turn), and per running cluster the
+// barrier of all its threads; a thread's cluster starts at
+// emu_cluster_base in emu_cluster_blocks.
 inline int emu_cluster = 1;
 inline std::vector<EmuBlock*> emu_cluster_blocks;
-inline std::unique_ptr<std::barrier<>> emu_cluster_bar;
+inline std::vector<std::unique_ptr<std::barrier<>>> emu_cluster_bars;
+inline thread_local int emu_cluster_base;
+inline thread_local std::barrier<>* emu_cluster_bar;
 
 inline int cluster_rank() { return (int)(blockIdx.x % emu_cluster); }
 inline int cluster_nblocks() { return emu_cluster; }
@@ -155,7 +166,7 @@ T* cluster_map(T* p, int rank) {
     std::fprintf(stderr, "cluster_map: offset %ld, rank %d out of range\n", off, rank);
     std::abort();
   }
-  return reinterpret_cast<T*>(emu_cluster_blocks[rank]->dyn_smem + off);
+  return reinterpret_cast<T*>(emu_cluster_blocks[emu_cluster_base + rank]->dyn_smem + off);
 }
 
 // atomicAdd on an int in global memory: the old value.
@@ -191,6 +202,52 @@ inline void cp_async_commit() {
 template <int N>
 void cp_async_wait() {}
 
+// mbarriers (see the top of the file), changed and waited on under one
+// mutex whose condition variable every arrival wakes. EMU_CLUSTER_SKEW
+// also delays each remote arrival by rank r's r*us microseconds.
+constexpr unsigned long long kEmuMbarTag = 0x6D62ULL << 48;
+inline std::mutex emu_mbar_mu;
+inline std::condition_variable emu_mbar_cv;
+inline void emu_mbar_check(unsigned long long v, const char* what) {
+  if ((v >> 48) != (kEmuMbarTag >> 48)) {
+    std::fprintf(stderr, "%s: not an mbarrier (never set up, or its block has exited)\n", what);
+    std::abort();
+  }
+}
+inline void mbar_init(unsigned long long* bar, int count) {
+  std::lock_guard<std::mutex> lock(emu_mbar_mu);
+  *bar = kEmuMbarTag | ((unsigned long long)count << 16) | (unsigned long long)count;
+}
+inline void mbar_init_fence() {}
+inline void mbar_arrive_cluster(unsigned long long* bar, int rank) {
+  if (emu_cluster > 1 && emu_cluster_skew_us > 0)
+    std::this_thread::sleep_for(std::chrono::microseconds(cluster_rank() * emu_cluster_skew_us));
+  unsigned long long* p = cluster_map(bar, rank);
+  {
+    std::lock_guard<std::mutex> lock(emu_mbar_mu);
+    const unsigned long long v = *p;
+    emu_mbar_check(v, "mbar_arrive_cluster");
+    const unsigned long long count = v & 0xFFFF, pending = (v >> 16) & 0xFFFF;
+    const unsigned long long phase = (v >> 32) & 0xFFFF;
+    *p = pending == 1 ? kEmuMbarTag | (((phase + 1) & 0xFFFF) << 32) | (count << 16) | count
+                      : kEmuMbarTag | (phase << 32) | ((pending - 1) << 16) | count;
+  }
+  emu_mbar_cv.notify_all();
+}
+inline void mbar_wait(unsigned long long* bar, int parity) {
+  std::unique_lock<std::mutex> lock(emu_mbar_mu);
+  const auto deadline = std::chrono::steady_clock::now() + std::chrono::seconds(60);
+  for (;;) {
+    const unsigned long long v = *bar;
+    emu_mbar_check(v, "mbar_wait");
+    if ((int)((v >> 32) & 1) != parity) return;
+    if (emu_mbar_cv.wait_until(lock, deadline) == std::cv_status::timeout) {
+      std::fprintf(stderr, "mbar_wait: no phase of parity %d completed in 60 s\n", parity);
+      std::abort();
+    }
+  }
+}
+
 // mma.sync.m16n8k32 s8 x s8 -> s32 with the fragment layout documented in
 // segdp_kernels.cuh: the warp's lanes publish their A and B registers,
 // then each lane sums its own four outputs from the assembled tiles.
@@ -224,7 +281,8 @@ inline void mma_m16n8k32_s8(int (&d)[4], const unsigned (&a)[4], const unsigned 
 // blocks at once: one std::thread per CUDA thread of each group for the
 // whole launch, with a block barrier before and after each block while
 // thread 0 sets it up. With `cluster` > 1 the launch runs in clusters of
-// that many blocks (grid.x a multiple of it), all at once.
+// that many blocks (grid.x a multiple of it), `concurrent` clusters at
+// once, each cluster's blocks all together.
 template <class F>
 void emu_launch(dim3 grid, int threads, F body, int concurrent = 1, int cluster = 1) {
   if (cluster > 1) {
@@ -232,10 +290,12 @@ void emu_launch(dim3 grid, int threads, F body, int concurrent = 1, int cluster 
       std::fprintf(stderr, "emu_launch: grid %u is not made of clusters of %d\n", grid.x, cluster);
       std::abort();
     }
-    concurrent = cluster;
+    concurrent *= cluster;
   }
   emu_cluster = cluster;
-  emu_cluster_bar = std::make_unique<std::barrier<>>((std::ptrdiff_t)cluster * threads);
+  emu_cluster_bars.clear();
+  for (int i = 0; i < concurrent / cluster; ++i)
+    emu_cluster_bars.push_back(std::make_unique<std::barrier<>>((std::ptrdiff_t)cluster * threads));
   emu_cluster_blocks.clear();
   gridDim = grid;
   blockDim = dim3(threads);
@@ -254,9 +314,11 @@ void emu_launch(dim3 grid, int threads, F body, int concurrent = 1, int cluster 
     for (int w = 0; w < threads / 32; ++w)
       blk->warps[w].bar = std::make_unique<std::barrier<>>(32);
     for (int t = 0; t < threads; ++t) {
-      ts.emplace_back([t, c, concurrent, grid, blocks, blk, &body] {
+      ts.emplace_back([t, c, cluster, concurrent, grid, blocks, blk, &body] {
         threadIdx = dim3(t);
         emu_block = blk;
+        emu_cluster_base = c / cluster * cluster;
+        emu_cluster_bar = emu_cluster_bars[c / cluster].get();
         emu_dyn_smem = blk->dyn_smem;
         for (unsigned lin = c; lin < blocks; lin += concurrent) {
           blockIdx = dim3(lin % grid.x, lin / grid.x);

@@ -4,18 +4,22 @@
 // launches, its wavefront on one block a problem, or with "cN" on
 // clusters of N blocks (wavefront_cluster_kernel, the clusters in turn,
 // each cluster's blocks at once); or with a grid size G, K2's one launch
-// of G blocks, of which `at_once` run concurrently (default 1: in turn).
+// of G blocks, of which `at_once` run concurrently (default 1: in turn);
+// or with "kN G", K2's cluster route (segdp_pipelined_cluster_kernel) on G
+// clusters of N blocks, `at_once` clusters concurrently, each cluster's
+// blocks together.
 // As in segdp.cu, the wavefront keeps H in shared memory when P <= cap and
 // in device memory (a scratch vector here: K1's (B, P, P), K2's (G, P,
 // P)) above; a cap of 0 forces the device-memory route (K1: the cluster
 // kernel's).
 //
-//   segdp_emu B P R read_support cap [cN | G [at_once]]
+//   segdp_emu B P R read_support cap [cN | G [at_once] | kN G [at_once]]
 //   in:  Cs.bin Thi.bin Tlo.bin W.bin wsum.bin wmax.bin y.bin n.bin
 //   out: K.bin bj.bin bk.bin chains.bin; K1's OT.bin and INS.bin (its
 //        scratch, of which only the live entries are defined); K2's
 //        queue.bin (the work counter as the launch left it: every block
-//        draws until it is handed a problem >= B, so B draws in all)
+//        draws until it is handed a problem >= B, so B draws in all; not
+//        written by the cluster route, which has no queue)
 #include <cstdio>
 #include <cstdlib>
 #include <vector>
@@ -43,16 +47,19 @@ static void store(const char* name, const std::vector<T>& v) {
 }
 
 int main(int argc, char** argv) {
-  if (argc < 6 || argc > 8) return 2;
+  if (argc < 6 || argc > 9) return 2;
   const int B = std::atoi(argv[1]), P = std::atoi(argv[2]);
   const int R = std::atoi(argv[3]), rs = std::atoi(argv[4]);
   const bool smem_h = P <= std::atoi(argv[5]);
   const bool cluster = argc >= 7 && argv[6][0] == 'c';  // K1 on clusters of N blocks
-  const int N = cluster ? std::atoi(argv[6] + 1) : 0;
-  const int G = argc >= 7 && !cluster ? std::atoi(argv[6]) : 0;  // 0: K1
-  const int at_once = argc == 8 ? std::atoi(argv[7]) : 1;
-  if (G < 0 || G > B || at_once < 1 || at_once > (G ? G : 1)) return 2;
+  const bool k2_cluster = argc >= 7 && argv[6][0] == 'k';  // K2 on G clusters of N blocks
+  const int N = cluster || k2_cluster ? std::atoi(argv[6] + 1) : 0;
+  const int grid_arg = k2_cluster ? 7 : 6;  // where G is
+  const int G = argc > grid_arg && !cluster ? std::atoi(argv[grid_arg]) : 0;  // 0: K1
+  const int at_once = argc == grid_arg + 2 ? std::atoi(argv[grid_arg + 1]) : 1;
+  if (argc > grid_arg + 2 || G < 0 || G > B || at_once < 1 || at_once > (G ? G : 1)) return 2;
   if (cluster && (N < 1 || N > segdp::kMaxCluster || argc != 7)) return 2;
+  if (k2_cluster && (N < 1 || N > segdp::kMaxCluster || G < 1)) return 2;
   if (!cluster && !smem_h && G == 0) return 2;  // K1's one-block wavefront keeps H in shared memory
   if (R % segdp::kMmaStage != 0) return 2;  // the wrapper pads the reps
   const size_t BP = (size_t)B * P, BPP = BP * P;
@@ -99,6 +106,21 @@ int main(int argc, char** argv) {
     }
     store("OT.bin", OT);
     store("INS.bin", INS);
+  } else if (k2_cluster) {
+    if (segdp::pipelined_cluster_smem_bytes(P, N, smem_h) > (int)sizeof(EmuBlock::dyn_smem))
+      return 2;
+    const size_t slots = 2 * (size_t)G * P * P;
+    std::vector<float> OT(slots * P, 12345.f), INS(slots, 12345.f);
+    std::vector<float> H(smem_h ? 0 : (size_t)G * P * P, 12345.f);
+    auto run = [&](auto kernel) {
+      kernel(Cs.data(), Thi.data(), Tlo.data(), W.data(), wsum.data(), wmax.data(), y.data(),
+             n.data(), OT.data(), INS.data(), H.data(), K.data(), bj.data(), bk.data(),
+             chains.data(), B, P, R, rs);
+    };
+    emu_launch(dim3(N * G), segdp::kPipeThreads, [&] {
+      smem_h ? run(segdp::segdp_pipelined_cluster_kernel<true>)
+             : run(segdp::segdp_pipelined_cluster_kernel<false>);
+    }, at_once, N);
   } else {
     const size_t slots = 2 * (size_t)G * P * P;
     std::vector<float> OT(slots * P, 12345.f), INS(slots, 12345.f);

@@ -464,3 +464,151 @@ def test_k1_route_by_shape(P, smem_max_p, cluster_size, want):
     if n == 0 and cluster_size is None:
         cap = segdp_cuda.cluster_smem_max_p()  # by shape: the default route's cap
     assert segdp_cuda._k1_route(P, smem_max_p, cluster_size) == (n, cap)
+
+
+@pytest.mark.parametrize("P,smem_max_p,cluster_size,want", [
+    (64, None, None, (0, "one")),  # narrow: one block per SM
+    ("below", None, None, (0, "one")),  # the last width below K2_CLUSTER_MIN_P
+    ("min", None, None, (16, None)),  # from K2_CLUSTER_MIN_P: a cluster per problem
+    (512, None, None, (16, None)),
+    (512, 0, None, (16, 0)),  # H forced to device memory, on the cluster route still
+    (64, 0, None, (0, 0)),  # below it, the one-block route with H in device memory
+    ("past16", None, None, (0, "one")),  # past what 16 blocks take: the one-block route
+    (32, None, 4, (4, None)),  # the cluster route forced at small P
+    (256, None, 8, (8, None)),
+    (512, None, 0, (0, "one")),  # the one-block route forced at a wide P
+    (512, None, 8, ValueError),  # past what 8 blocks take
+    (64, None, 17, ValueError),  # past the largest cluster
+    (64, None, -1, ValueError),
+])
+def test_k2_route_by_shape(P, smem_max_p, cluster_size, want):
+    """K2's route by shape, and what cluster_size forces or refuses: (N,
+    cap), N the blocks per cluster of its cluster route (0: the one-block
+    route) and cap the widest P whose H stays in shared memory (None: the
+    cluster route's own on N blocks; "one": the one-block route's,
+    K2_SMEM_MAX_P). The cluster size by shape is given as 16 here (on the
+    card: k2_cluster_size_for)."""
+    from freddie_tpu_torch.ops import segdp_cuda
+
+    P = {"below": segdp_cuda.K2_CLUSTER_MIN_P - 1, "min": segdp_cuda.K2_CLUSTER_MIN_P,
+         "past16": segdp_cuda.k2_cluster_max_p(16) + 1}.get(P, P)
+    assert segdp_cuda.K2_CLUSTER_MIN_P <= segdp_cuda.K2_SMEM_MAX_P + 1
+    route = lambda: segdp_cuda._k2_route(P, smem_max_p, cluster_size, lambda: 16)  # noqa: E731
+    if want is ValueError:
+        with pytest.raises(ValueError):
+            route()
+        return
+    n, cap = want
+    cap = {None: segdp_cuda.k2_cluster_smem_max_p(n) if n else None,
+           "one": segdp_cuda.K2_SMEM_MAX_P}.get(cap, cap)
+    assert route() == (n, cap)
+
+
+@pytest.mark.parametrize("B,P,want", [
+    (8, 256, 16),  # every cluster of 16 resident at once
+    (24, 256, 16),  # three problems a resident cluster of 16
+    (25, 256, 8),  # more: 8 blocks a cluster
+    (64, 128, 8),
+    (25, 512, 16),  # past what 8 blocks take: 16 whatever fits at once
+    (1, 96, 16),
+])
+def test_k2_cluster_size_follows_the_resident_clusters(monkeypatch, B, P, want):
+    """k2_cluster_size_for takes 16 blocks a cluster where 8 cannot take
+    P, or where the batch needs at most K2_WIDE_PROBLEMS_PER_CLUSTER (3)
+    problems per resident cluster of 16; the runtime's answer is
+    simulated as 8 clusters."""
+    from freddie_tpu_torch.ops import segdp_cuda
+
+    assert segdp_cuda.K2_WIDE_PROBLEMS_PER_CLUSTER == 3
+    monkeypatch.setattr(segdp_cuda, "k2_cluster_occupancy",
+                        lambda P, N=None, smem_max_p=None: {"max_active_clusters": 8})
+    assert segdp_cuda.k2_cluster_size_for(B, P) == want
+
+
+@pytest.mark.parametrize("N", [2, 4, 8, 16])
+def test_k2_cluster_caps_are_the_widest_that_fit_a_block(N):
+    """A block of K2's cluster route holds the producers' PairSmem<128>
+    (107,520 B), 64 B of mbarriers and K1's cluster wavefront layout
+    (pipelined_cluster_smem_bytes in the .cuh); k2_cluster_smem_max_p(N)
+    is the widest P for which that fits a block with H's triangle,
+    k2_cluster_max_p(N) the widest with the ring alone. On 16 blocks the
+    P = 512 bucket keeps H in shared memory; on 8 it does not fit at all,
+    which is why the route takes 16 there."""
+    from freddie_tpu_torch.ops import segdp_cuda
+
+    limit = segdp_cuda._MAX_SMEM
+    for P in (1, 37, 256, 512):
+        for smem_h in (True, False):
+            assert segdp_cuda.k2_cluster_smem_bytes(P, N, smem_h) == (
+                107_520 + 64 + segdp_cuda.cluster_smem_bytes(P, N, smem_h))
+    for cap, smem_h in ((segdp_cuda.k2_cluster_smem_max_p(N), True),
+                        (segdp_cuda.k2_cluster_max_p(N), False)):
+        assert segdp_cuda.k2_cluster_smem_bytes(cap, N, smem_h) <= limit
+        assert segdp_cuda.k2_cluster_smem_bytes(cap + 1, N, smem_h) > limit
+    assert segdp_cuda.k2_cluster_smem_max_p(N) < segdp_cuda.k2_cluster_max_p(N)
+    assert segdp_cuda.k2_cluster_max_p(N) < segdp_cuda.cluster_max_p(N)
+    if N == 16:
+        assert segdp_cuda.k2_cluster_smem_max_p(N) >= 512
+    if N == 8:
+        assert segdp_cuda.k2_cluster_max_p(N) < 512
+
+
+def test_k2_cluster_scratch_counts_two_slots_a_cluster(monkeypatch):
+    """The cluster route's scratch is held per cluster: two slots of the
+    outside tensor and inside each, and H only above the route's own cap
+    (or a lower one the caller gives); its grid is the resident clusters
+    (simulated as 8 here), cut to what SCRATCH_BUDGET holds and to B."""
+    from freddie_tpu_torch.ops import segdp_cuda
+
+    for P, N in ((256, 16), (512, 16), (192, 8)):
+        two = 4 * 2 * (P**3 + P**2)
+        assert segdp_cuda.scratch_bytes(P, True, N=N) == two  # H in the cluster's shared memory
+        assert segdp_cuda.scratch_bytes(P, True, 0, N=N) == two + 4 * P * P
+    P = segdp_cuda.k2_cluster_smem_max_p(16) + 1
+    assert segdp_cuda.scratch_bytes(P, True, N=16) == 4 * (2 * (P**3 + P**2) + P * P)
+    monkeypatch.setattr(segdp_cuda, "k2_cluster_occupancy",
+                        lambda P, N=None, smem_max_p=None: {"max_active_clusters": 8})
+    assert segdp_cuda.pipelined_cluster_grid(2, 256, 16) == 2
+    assert segdp_cuda.pipelined_cluster_grid(64, 256, 16) == 8
+    assert segdp_cuda.pipelined_cluster_grid(64, 512, 16) == 3  # 1.07 GB a cluster of 4 GiB
+    monkeypatch.setattr(segdp_cuda, "SCRATCH_BUDGET", 1)
+    assert segdp_cuda.pipelined_cluster_grid(64, 256, 16) == 1
+
+
+@pytest.mark.parametrize("wide", [False, True])
+def test_k2_cluster_route_on_a_simulated_card_matches_pallas_pipelined(monkeypatch, wide):
+    """A K2 batch of the P = 256 bucket on a (simulated) card takes the
+    cluster route by shape, on 16 blocks a cluster while 8 such clusters
+    are resident, with H in their shared memory; and the route forced at
+    a small P (cluster_size=4) on CPU tensors, where the wrapper runs its
+    plain version, equals the JAX package's solve_batch_pallas(pipelined=
+    True) in interpret mode, chains included, as the K2 parity test above
+    runs it. A forced route the card would refuse is refused on the CPU
+    too."""
+    from freddie_tpu_torch.ops import segdp_cuda
+    from freddie_tpu_torch.ops.segdp_cuda import solve_batch_cuda
+
+    monkeypatch.setattr(segdp_cuda, "k2_cluster_occupancy",
+                        lambda P, N=None, smem_max_p=None: {"max_active_clusters": 8})
+    assert segdp_cuda._k2_route(256, None, None, lambda: segdp_cuda.k2_cluster_size_for(8, 256)) \
+        == (16, segdp_cuda.k2_cluster_smem_max_p(16))
+
+    rng = np.random.default_rng(31 if wide else 37)
+    thr = ScaledThresholds(0.9)
+    C, y, W, n_cand = _padded_batch(rng, 5, 16, 128, wide)
+    P = C.shape[1]
+    lookup = jnp.asarray(thr.lookup)
+    want = solve_batch_pallas(jnp.asarray(C), jnp.asarray(y), jnp.asarray(W),
+                              jnp.asarray(n_cand), 3, lookup, thr.scale, interpret=True,
+                              wide_weights=wide, pipelined=True)
+    targs = (torch.from_numpy(C), torch.from_numpy(y), torch.from_numpy(W),
+             torch.from_numpy(n_cand), 3, torch.from_numpy(thr.lookup), thr.scale)
+    Kt, bjt, bkt, chains = solve_batch_cuda(*targs, pipelined=True, with_chains=True,
+                                            cluster_size=4)
+    np.testing.assert_array_equal(np.asarray(want[1]), bjt.numpy())
+    np.testing.assert_array_equal(np.asarray(want[2]), bkt.numpy())
+    np.testing.assert_array_equal(np.asarray(want[0])[:, : P - 1], Kt.numpy()[:, : P - 1])
+    np.testing.assert_array_equal(np.asarray(jseg._walk_chains(*want)), chains.numpy())
+    assert (bjt >= 0).any(), "fixture should segment at least one problem"
+    with pytest.raises(ValueError):
+        solve_batch_cuda(*targs, pipelined=True, cluster_size=17)

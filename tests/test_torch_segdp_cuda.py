@@ -212,10 +212,11 @@ def test_k2_live_k_limbs_gate_and_chains(cuda_device, case):
 @pytest.mark.cuda
 @pytest.mark.parametrize("P", [192, 256])
 def test_k2_above_its_shared_memory_keeps_h_in_device_memory(cuda_device, P):
-    """Above K2_SMEM_MAX_P each K2 block's H is a plane of its own in
-    device memory: K2 is bit-equal to K1 and to the plain version, chains
-    included, with more problems than blocks so that blocks draw from the
-    queue while others run."""
+    """Above K2_SMEM_MAX_P each block of K2's one-block route (forced:
+    cluster_size=0) keeps its H in a plane of its own in device memory:
+    K2 is bit-equal to K1 and to the plain version, chains included, with
+    more problems than blocks so that blocks draw from the queue while
+    others run."""
     from freddie_tpu_torch.ops import segdp_cuda
 
     assert P > segdp_cuda.K2_SMEM_MAX_P
@@ -226,10 +227,12 @@ def test_k2_above_its_shared_memory_keeps_h_in_device_memory(cuda_device, P):
     t = tseg.to_device(dict(C=C, y=y, W=W, n_cand=n_cand), cuda_device)
     lookup = torch.from_numpy(thr.lookup).to(cuda_device)
     args = (t["C"], t["y"], t["W"], t["n_cand"], 3, lookup, thr.scale)
-    before = segdp_cuda.PIPELINED_DEVICE_H_LAUNCHES
+    before = (segdp_cuda.PIPELINED_DEVICE_H_LAUNCHES, segdp_cuda.PIPELINED_CLUSTER_LAUNCHES)
+    # The one-block route (by shape these widths take the cluster route).
     K2, bj2, bk2, chains2 = segdp_cuda.solve_batch_cuda(*args, pipelined=True,
-                                                        with_chains=True)
-    assert segdp_cuda.PIPELINED_DEVICE_H_LAUNCHES == before + 1
+                                                        with_chains=True, cluster_size=0)
+    assert (segdp_cuda.PIPELINED_DEVICE_H_LAUNCHES, segdp_cuda.PIPELINED_CLUSTER_LAUNCHES) == (
+        before[0] + 1, before[1])
     K1, bj1, bk1, chains1 = segdp_cuda.solve_batch_cuda(*args, with_chains=True)
     Kt, bjt, bkt = tseg._solve_batch_torch(*args)
     torch.cuda.synchronize()
@@ -465,3 +468,100 @@ def test_refused_cluster_launch_raises(cuda_device, monkeypatch):
     with pytest.raises(RuntimeError, match="kernel launch failed"):
         segdp_cuda.solve_batch_cuda(*args, cluster_size=8)
     assert (segdp_cuda.LAUNCHES, segdp_cuda.CLUSTER_LAUNCHES) == before
+
+
+def _plain_in_parts(args):
+    """_solve_batch_torch and _walk_chains over a batch, a few problems at
+    a time so that the plain version's (b, P, P, P) tensors stay small."""
+    C = args[0]
+    B, P = C.shape[:2]
+    step = max(1, 2**28 // P**3)
+    parts = []
+    for b0 in range(0, B, step):
+        part = [a[b0:b0 + step] for a in args[:4]] + list(args[4:])
+        res = tseg._solve_batch_torch(*part)
+        parts.append(res + (tseg._walk_chains(*res),))
+    return [torch.cat(x) for x in zip(*parts)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    dict(B=1, P=192), dict(B=8, P=192), dict(B=2, P=224), dict(B=64, P=224),
+    dict(B=1, P=256), dict(B=8, P=256), dict(B=64, P=256),
+    dict(B=1, P=512), dict(B=2, P=512), dict(B=8, P=512),
+    dict(B=8, P=256, cluster=8), dict(B=8, P=256, cluster=16),  # forced sizes
+    dict(B=64, P=192, cluster=8),  # more problems than clusters of 8
+    dict(B=8, P=256, cap=0), dict(B=2, P=512, cap=0),  # H in device memory
+    dict(B=8, P=256, structured=True, ties=True),  # unit weights: ties
+    dict(B=2, P=512, structured=True, ties=True),
+    dict(B=8, P=192, structured=True),  # every candidate live, long chains
+    dict(B=8, P=224, wide=True),  # weights past 127: two limbs
+    dict(B=8, P=96), dict(B=128, P=96), dict(B=64, P=128), dict(B=5, P=160),  # from P = 96
+    dict(B=8, P=64, cluster=4),  # forced below K2_CLUSTER_MIN_P
+], ids=lambda c: "-".join(f"{k}{v}" for k, v in c.items()))
+def test_k2_cluster_route_matches_plain_and_k1(cuda_device, case):
+    """K2's cluster route (segdp_pipelined_cluster_kernel): K, best_j,
+    best_k and the chains bit-equal to the plain version and to K1, by
+    shape (16 or 8 blocks a cluster, k2_cluster_size_for) and with the
+    cluster size forced, H in the cluster's shared memory and in device
+    memory, ties and wide weights; each call counts one
+    PIPELINED_CLUSTER_LAUNCHES and no K1 launch."""
+    from freddie_tpu_torch.ops import segdp_cuda
+
+    B, P = case["B"], case["P"]
+    R = 64 if B == 64 else 128
+    if case.get("wide"):
+        rng = np.random.default_rng(B * P)
+        thr = ScaledThresholds(0.9)
+        C, y, W, n_cand = padded_batch(rng, B, P, R, True)
+        n_cand[0] = P
+        t = tseg.to_device(dict(C=C, y=y, W=W, n_cand=n_cand), cuda_device)
+        args = (t["C"], t["y"], t["W"], t["n_cand"], 3,
+                torch.from_numpy(thr.lookup).to(cuda_device), thr.scale)
+    else:
+        args = _wide_args(cuda_device, B, P, R, B * P + R + 9, case.get("structured", False),
+                          case.get("ties", False))
+    before = (segdp_cuda.LAUNCHES, segdp_cuda.PIPELINED_LAUNCHES,
+              segdp_cuda.PIPELINED_CLUSTER_LAUNCHES, segdp_cuda.PIPELINED_DEVICE_H_LAUNCHES)
+    K2 = segdp_cuda.solve_batch_cuda(*args, pipelined=True, with_chains=True,
+                                     smem_max_p=case.get("cap"), cluster_size=case.get("cluster"))
+    assert (segdp_cuda.LAUNCHES, segdp_cuda.PIPELINED_LAUNCHES,
+            segdp_cuda.PIPELINED_CLUSTER_LAUNCHES, segdp_cuda.PIPELINED_DEVICE_H_LAUNCHES) == (
+        before[0], before[1] + 1, before[2] + 1, before[3] + (case.get("cap") == 0))
+    K1 = segdp_cuda.solve_batch_cuda(*args, with_chains=True)
+    plain = _plain_in_parts(args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(K2, K1))
+    assert torch.equal(K2[1], plain[1]) and torch.equal(K2[2], plain[2])
+    assert torch.equal(K2[0][:, : P - 1], plain[0][:, : P - 1])
+    assert torch.equal(K2[3], plain[3])
+    assert (plain[1] >= 0).any(), "no problem segmented: the case is vacuous"
+
+
+@pytest.mark.cuda
+def test_k2_refused_cluster_launch_raises(cuda_device, monkeypatch):
+    """A launch of K2's cluster route that the runtime refuses raises and
+    falls back to nothing: here the route's caps are patched past what
+    fits, so P = 512 on 8 blocks asks a block for more shared memory than
+    it has (the runtime refuses it already when the wrapper asks how many
+    such clusters fit). The runtime reports at least one resident cluster of the route
+    at the wide widths, and k2_cluster_size_for takes 16 exactly while the
+    batch needs at most K2_WIDE_PROBLEMS_PER_CLUSTER problems per resident
+    cluster of 16."""
+    from freddie_tpu_torch.ops import segdp_cuda
+
+    for P in (192, 256):
+        for N in (segdp_cuda.CLUSTER_SIZE, segdp_cuda.WIDE_CLUSTER_SIZE):
+            assert segdp_cuda.k2_cluster_occupancy(P, N)["max_active_clusters"] >= 1
+        most = (segdp_cuda.K2_WIDE_PROBLEMS_PER_CLUSTER
+                * segdp_cuda.k2_cluster_occupancy(P, 16)["max_active_clusters"])
+        assert segdp_cuda.k2_cluster_size_for(most, P) == 16
+        assert segdp_cuda.k2_cluster_size_for(most + 1, P) == segdp_cuda.CLUSTER_SIZE
+    assert segdp_cuda.k2_cluster_occupancy(512, 16)["max_active_clusters"] >= 1
+    args = _wide_args(cuda_device, 1, 512, 64, 512)
+    monkeypatch.setattr(segdp_cuda, "k2_cluster_max_p", lambda N=None: 10**4)
+    monkeypatch.setattr(segdp_cuda, "k2_cluster_smem_max_p", lambda N=None: 10**4)
+    before = (segdp_cuda.PIPELINED_LAUNCHES, segdp_cuda.PIPELINED_CLUSTER_LAUNCHES)
+    with pytest.raises(RuntimeError, match="failed"):
+        segdp_cuda.solve_batch_cuda(*args, pipelined=True, cluster_size=8)
+    assert (segdp_cuda.PIPELINED_LAUNCHES, segdp_cuda.PIPELINED_CLUSTER_LAUNCHES) == before

@@ -41,7 +41,8 @@ import torch
 from freddie_tpu_torch.ops import segdp as tseg
 from freddie_tpu_torch.ops.segdp import ScaledThresholds
 from freddie_tpu_torch.ops.segdp_cuda import (
-    K1_SMEM_MAX_P, K2_SMEM_MAX_P, REP_STAGE, cluster_smem_max_p, kernel_inputs)
+    K1_SMEM_MAX_P, K2_SMEM_MAX_P, REP_STAGE, cluster_smem_max_p, k2_cluster_smem_max_p,
+    kernel_inputs)
 from test_segdp import random_problem
 from test_torch_segdp_cuda import padded_batch, segment_batch
 
@@ -96,10 +97,11 @@ def _full_short_batch(rng, B, P, R):
 
 def _run_and_check(emulator, tmp_path, B, P, R, wide, full, grid=(), rs=3, scale_w=1,
                    short=False, full_short=False, stall=None, at_once=None, cap=None,
-                   cluster=None, segments=False, ties=False, skew=100):
+                   cluster=None, segments=False, ties=False, skew=100, k2_cluster=None):
     """Runs the emulated kernels on a random padded batch (K2 when
-    ``grid`` holds G; K1's wavefront on clusters of ``cluster`` blocks
-    when it is given) and holds them
+    ``grid`` holds G, on G clusters of ``k2_cluster`` blocks when that is
+    given; K1's wavefront on clusters of ``cluster`` blocks when it is
+    given) and holds them
     against _solve_batch_torch, and their chains against _walk_chains.
     ``cap``: the widest P whose H stays in shared memory (default the
     kernel's own limit; 0 puts H in device memory);
@@ -111,8 +113,8 @@ def _run_and_check(emulator, tmp_path, B, P, R, wide, full, grid=(), rs=3, scale
     ``short``: few candidates in a wide padding (dead blocks);
     ``scale_w``: weights past two 7-bit limbs; ``full_short``: the batch of
     _full_short_batch; ``stall``: "id:ms", every wait at named barrier id
-    delayed by ms milliseconds; ``at_once``: how many of K2's blocks run
-    concurrently (default: in turn)."""
+    delayed by ms milliseconds; ``at_once``: how many of K2's blocks (or
+    clusters) run concurrently (default: in turn)."""
     rng = np.random.default_rng(P * 7 + R + wide)
     thr = ScaledThresholds(0.9)
     if full_short:
@@ -138,14 +140,15 @@ def _run_and_check(emulator, tmp_path, B, P, R, wide, full, grid=(), rs=3, scale
     for name, a in inputs.items():
         np.ascontiguousarray(a.numpy(), dtype=np.int32).tofile(tmp_path / f"{name}.bin")
     if cap is None:
-        cap = (K2_SMEM_MAX_P if grid else
+        cap = (k2_cluster_smem_max_p(k2_cluster) if k2_cluster else K2_SMEM_MAX_P if grid else
                cluster_smem_max_p(cluster) if cluster else K1_SMEM_MAX_P)
     subprocess.run([str(emulator), str(B), str(P), str(Cs.shape[2]), str(rs), str(cap),
+                    *([f"k{k2_cluster}"] if k2_cluster else []),
                     *map(str, grid), *([f"c{cluster}"] if cluster else []),
                     *([str(at_once)] if at_once else [])],
                    cwd=tmp_path, check=True, capture_output=True, timeout=300,
                    env={**os.environ, **({"EMU_STALL": stall} if stall else {}),
-                        **({"EMU_CLUSTER_SKEW": str(skew)} if cluster else {})})
+                        **({"EMU_CLUSTER_SKEW": str(skew)} if cluster or k2_cluster else {})})
     K = np.fromfile(tmp_path / "K.bin", np.int32).reshape(B, P, P)
     bj = np.fromfile(tmp_path / "bj.bin", np.int32)
     bk = np.fromfile(tmp_path / "bk.bin", np.int32)
@@ -162,7 +165,7 @@ def _run_and_check(emulator, tmp_path, B, P, R, wide, full, grid=(), rs=3, scale
         assert (bjt >= 0).any(), "no structured problem segmented: the case is vacuous"
     if not grid:
         _check_live_scratch(tmp_path, C, y, W, n_cand, rs, thr)
-    else:
+    elif not k2_cluster:
         # Each block draws until it is handed a problem past the last: G
         # first problems by block index, then B draws from the queue in all.
         assert np.fromfile(tmp_path / "queue.bin", np.int32).tolist() == [B]
@@ -363,3 +366,51 @@ def test_emulated_k2_with_h_in_device_memory(emulator, tmp_path, case):
     _run_and_check(emulator, tmp_path, case.pop("B"), case.pop("P"), case.pop("R"),
                    case.pop("wide", False), case.pop("full", False), grid=(case.pop("G"),),
                    cap=0, **case)
+
+
+@pytest.mark.parametrize("case", [
+    dict(B=2, P=16, R=64, G=2, N=2),  # one problem a cluster
+    dict(B=3, P=18, R=64, G=1, N=4),  # one cluster, both slots reused; P not a multiple of N
+    dict(B=5, P=24, R=64, G=2, N=2, at_once=2),  # several a cluster, clusters at once
+    dict(B=4, P=20, R=64, G=1, N=4, cap=0),  # H in device memory, one plane reused
+    dict(B=5, P=24, R=64, G=2, N=2, cap=0, at_once=2),  # a plane per cluster, at once
+    dict(B=4, P=16, R=64, G=1, N=2, stall=f"{PRODUCER_BAR}:2"),  # producers behind
+    dict(B=4, P=16, R=64, G=1, N=4, stall=f"{CONSUMER_BAR}:1"),  # consumers behind
+    dict(B=3, P=24, R=64, G=1, N=4, ties=True),  # unit weights: first index wins
+    dict(B=3, P=30, R=64, G=2, N=2, ties=True, cap=0, at_once=2),  # ties, H in device memory
+    dict(B=2, P=72, R=40, G=1, N=4),  # two output tiles per side
+    dict(B=2, P=7, R=64, G=1, N=8),  # ranks that own no row and no middle index
+], ids=["n2_one_each", "n4_reuse", "n2_two_clusters_at_once", "n4_device_h",
+        "n2_device_h_at_once", "n2_slow_producers", "n4_slow_consumers", "n4_ties",
+        "n2_ties_device_h", "n4_two_tiles", "n8_p7"])
+def test_emulated_k2_cluster_route(emulator, tmp_path, case):
+    """K2's cluster route (segdp_pipelined_cluster_kernel) forced at small
+    P (on the card it runs from K2_CLUSTER_MIN_P) on G clusters of N
+    blocks, on structured problems that all segment: each block's
+    producers run phase 1 for every N-th middle index, its consumers the
+    cluster wavefront, the slots handed over by the cluster's mbarriers,
+    one cluster's problems after another in its two slots; the ranks
+    drift apart wherever no barrier holds them (EMU_CLUSTER_SKEW, also at
+    every remote arrival), a group is held back (EMU_STALL), and a
+    block's shared memory, its mbarriers included, turns to garbage when
+    it exits. Zero tolerance against the plain version, chains included."""
+    case = dict(case)
+    _run_and_check(emulator, tmp_path, case.pop("B"), case.pop("P"), case.pop("R"), False,
+                   False, grid=(case.pop("G"),), k2_cluster=case.pop("N"), segments=True,
+                   **case)
+
+
+@pytest.mark.parametrize("case", [
+    dict(B=3, P=32, R=64, short=True, G=1, N=4),  # n_cand << P: dead middle indices
+    dict(B=2, P=40, R=100, wide=True, G=1, N=2),  # weights past 127, ragged tiles and stages
+    dict(B=2, P=16, R=96, wide=True, scale_w=300, G=2, N=2),  # three weight limbs
+    dict(B=4, P=16, R=64, full_short=True, G=1, N=2),  # slots reused by unlike sizes
+], ids=["short", "wide_ragged", "limbs3", "full_short"])
+def test_emulated_k2_cluster_route_random_problems(emulator, tmp_path, case):
+    """The cluster route at what K2's one-block route is held to above:
+    random padded problems with dead middle indices, wide weights and
+    slots reused by problems of unlike size."""
+    case = dict(case)
+    _run_and_check(emulator, tmp_path, case.pop("B"), case.pop("P"), case.pop("R"),
+                   case.pop("wide", False), False, grid=(case.pop("G"),),
+                   k2_cluster=case.pop("N"), **case)
