@@ -51,7 +51,12 @@ on the card:
    to the plain version, chains included, timed beside K1 with the bound
    and its launch's device time; a sweep of K2 over P and B on its
    one-block route and on clusters of 8 and 16 blocks (the data behind
-   K2_CLUSTER_MIN_P and k2_cluster_size_for); K2's one-block route at
+   K2_CLUSTER_MIN_P and k2_cluster_size_for); K1 and K2 past the widths
+   that a ring of whole outside planes held -- (8, 704, 128), (1, 960,
+   128), (2, 960, 128), (1, 1312, 128) -- by shape, and with the row ring
+   forced to its least depth at (8, 256, 128) and (2, 512, 128), each
+   call driven with the counts at zero, bit-equal to the plain version,
+   chains included, timed with its route; K2's one-block route at
    (8, 256, 128), forced, driven with the counts at zero, equal to K1;
    K1 at (8, 256, 128) in three groups
    under a scratch budget forced low, bit-equal; problems of the P = 256
@@ -923,7 +928,7 @@ def k2_sweep(dev, card, rng) -> None:
     for P, B in K2_SWEEP:
         args, _t = wide_batch(dev, rng, B, P, 128)
         k1 = segdp_cuda.solve_batch_cuda(*args, with_chains=True)
-        routes = [0] + [n for n in SWEEP_N if P <= segdp_cuda.k2_cluster_max_p(n)]
+        routes = [0, *SWEEP_N]
         bad = [n for n in routes if not same_result(
             segdp_cuda.solve_batch_cuda(*args, pipelined=True, with_chains=True,
                                         cluster_size=n), k1)]
@@ -946,13 +951,104 @@ def k2_sweep(dev, card, rng) -> None:
                          f"{segdp_cuda.pipelined_cluster_grid(B, P, n)} clusters; max active "
                          f"clusters {occ['max_active_clusters']}, {occ['smem_bytes']} B a block, "
                          f"{occ['registers']} registers)")
-        by_shape = segdp_cuda._k2_route(P, None, None, lambda: segdp_cuda.k2_cluster_size_for(B, P))
+        by_shape = segdp_cuda.launch_route(B, P, pipelined=True)
         log(f"[sweep] K2 at B={B} P={P} R=128 (by shape: "
             f"{'clusters of %d' % by_shape[0] if by_shape[0] else 'one block an SM'}): every "
             f"route equal to K1, chains included; whole call (medians of {TIMED_REPS}) and the "
             f"K2 launch's device time (profiler, mean of 3): {'; '.join(parts)}; on {card}")
         del args, _t, k1
         torch.cuda.empty_cache()
+
+
+# K1 and K2 past the widths that each block's ring of two whole outside
+# planes held (K1 refused P > 674 on 8 blocks and P > 948 on 16; K2 took
+# its one-block route past 690), by shape. P = 1312 is the first bucket
+# whose outside tensor passes 2^31 floats.
+EVERY_WIDTH = [(8, 704, 128), (1, 960, 128), (2, 960, 128), (1, 1312, 128)]
+# The repeats a call of every_width is timed over (fewer than TIMED_REPS:
+# at these widths one call takes 10-100 ms).
+EVERY_WIDTH_REPS = 3
+
+
+def plain_in_parts(args):
+    """The plain version's K, best_j, best_k and chains over a batch, one
+    problem at a time (its (1, P, P, P) tensors are 9 GB at P = 1312)."""
+    import torch
+
+    from freddie_tpu_torch.ops.segdp import _solve_batch_torch, _walk_chains
+
+    parts = []
+    for b in range(args[0].shape[0]):
+        res = _solve_batch_torch(*[a[b:b + 1] for a in args[:4]], *args[4:])
+        parts.append(res + (_walk_chains(*res),))
+    return tuple(torch.cat(x) for x in zip(*parts))
+
+
+def every_width(dev, card, rng, wide: dict) -> dict:
+    """K1 and K2 at EVERY_WIDTH by shape, and with the ring of rows forced
+    at the shapes of ``wide`` (whose batches and plain results it reuses):
+    each call driven once with every count at zero, which must show one
+    launch, on the kernel's cluster route; K, best_j, best_k and the
+    chains bit-equal to the plain version; each call's time (median of
+    EVERY_WIDTH_REPS) with its route and bound, and the plain version's
+    (one cold run, CUDA events: the first call at that width, so the
+    allocator's first requests for its tensors are inside it). Returns
+    those calls' launches of K1 and of K2."""
+    import torch
+
+    from freddie_tpu_torch.ops import segdp_cuda
+
+    cases = [(shape, None, None) for shape in EVERY_WIDTH]
+    cases += [(shape, True, w) for shape, w in wide.items()]
+    launches = {False: 0, True: 0}
+    for (B, P, R), row_ring, w in cases:
+        if w is None:
+            args, t = wide_batch(dev, rng, B, P, R)
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            plain = plain_in_parts(args)
+            stop.record()
+            stop.synchronize()
+            p_ms, p_what = start.elapsed_time(stop), "one cold run"
+        else:
+            args, t, plain, p_ms, p_what = w["args"], w["t"], w["plain"], w["p_ms"], "above"
+        b_ms, b_by, _by_bytes, _by_ops = bound_ms(t, P)
+        parts = []
+        for pipelined in (False, True):
+            segdp_cuda.LAUNCHES = segdp_cuda.CLUSTER_LAUNCHES = 0
+            segdp_cuda.PIPELINED_LAUNCHES = segdp_cuda.PIPELINED_CLUSTER_LAUNCHES = 0
+            res = segdp_cuda.solve_batch_cuda(*args, pipelined=pipelined, with_chains=True,
+                                              row_ring=row_ring)
+            torch.cuda.synchronize()
+            n = (segdp_cuda.PIPELINED_CLUSTER_LAUNCHES, segdp_cuda.PIPELINED_LAUNCHES,
+                 segdp_cuda.LAUNCHES) if pipelined else (
+                segdp_cuda.CLUSTER_LAUNCHES, segdp_cuda.LAUNCHES, segdp_cuda.PIPELINED_LAUNCHES)
+            what = "K2" if pipelined else "K1"
+            how = "the ring of rows forced" if row_ring else "by shape"
+            if n != (1, 1, 0):
+                raise RuntimeError(f"{what} at B={B} P={P} R={R} ({how}): (cluster-route, "
+                                   f"all, other kernel's) launches {n}, not (1, 1, 0)")
+            err = max_abs_diff(res[:3], plain, P)
+            if err != 0 or not torch.equal(res[3], plain[3]):
+                raise RuntimeError(f"{what} at B={B} P={P} R={R} ({how}) != plain: max "
+                                   f"abs err {err}")
+            launches[pipelined] += n[0]
+            N, cap, rows = segdp_cuda.launch_route(B, P, pipelined, row_ring=row_ring)
+            ms = time_ms(lambda: segdp_cuda.solve_batch_cuda(*args, pipelined=pipelined,
+                                                             row_ring=row_ring),
+                         reps=EVERY_WIDTH_REPS)
+            parts.append(f"{what} {ms:.3f} ms on clusters of {N} blocks, the ring of "
+                         f"{'rows' if rows else 'planes'}, H in "
+                         f"{'shared' if P <= cap else 'device'} memory")
+            del res
+        log(f"[wide] every width, B={B} P={P} R={R} "
+            f"({'the ring of rows forced' if row_ring else 'by shape'}): K1 "
+            f"and K2 bit-equal to plain, chains included, each one launch on its cluster route "
+            f"with the counts at zero; {'; '.join(parts)} (medians of {EVERY_WIDTH_REPS}); plain "
+            f"{p_ms:.3f} ms ({p_what}); bound {b_ms:.4f} ms by {b_by}; on {card}")
+        del args, t, plain
+        torch.cuda.empty_cache()
+    return dict(k1=launches[False], k2=launches[True])
 
 
 def wide_phase(dev, card, workdir: str, p512: dict) -> dict:
@@ -1081,8 +1177,10 @@ def wide_phase(dev, card, workdir: str, p512: dict) -> dict:
             rows["K2 wide"] = dict(max_abs_err=err, ms=k2_ms, plain_ms=w["p_ms"], bound_ms=b_ms,
                                    bound_by=b_by, library_ms=None)
 
-    # The one-block route, which takes P past the cluster route's, driven
-    # once at P = 256 (forced) with every count at zero.
+    every = every_width(dev, card, rng, wide)
+
+    # The one-block route, which the tests hold the cluster route against,
+    # driven once at P = 256 (forced) with every count at zero.
     segdp_cuda.PIPELINED_LAUNCHES = segdp_cuda.PIPELINED_DEVICE_H_LAUNCHES = 0
     segdp_cuda.PIPELINED_CLUSTER_LAUNCHES = segdp_cuda.LAUNCHES = 0
     one = segdp_cuda.solve_batch_cuda(*wide_args, pipelined=True, with_chains=True,
@@ -1097,8 +1195,8 @@ def wide_phase(dev, card, workdir: str, p512: dict) -> dict:
     one_ms = time_ms(lambda: segdp_cuda.solve_batch_cuda(*wide_args, pipelined=True,
                                                          cluster_size=0))
     rows["K2 wide, one block an SM"] = dict(rows["K1 wide (cluster wavefront)"], ms=one_ms)
-    log(f"[wide] K2's one-block route at B=8 P=256 R=128 (forced; by shape it takes P above "
-        f"k2_cluster_max_p(16) = {segdp_cuda.k2_cluster_max_p(16)}; grid "
+    log(f"[wide] K2's one-block route at B=8 P=256 R=128 (forced; by shape it takes only P "
+        f"below K2_CLUSTER_MIN_P = {segdp_cuda.K2_CLUSTER_MIN_P}; grid "
         f"{segdp_cuda.pipelined_grid(8, 256)}, H in device memory above K2_SMEM_MAX_P = "
         f"{segdp_cuda.K2_SMEM_MAX_P}; the runtime reports "
         f"{json.dumps(segdp_cuda.pipelined_occupancy(256))}): {one_launches} launch with the "
@@ -1195,7 +1293,8 @@ def wide_phase(dev, card, workdir: str, p512: dict) -> dict:
         h_launches += on_device
     return dict(k1_launches=k1_launches, k1_cluster_launches=c_launches,
                 k1_device_h_launches=h_launches, k2_cluster_launches=k2_launches,
-                k2_one_block_launches=one_launches, rows=rows)
+                k2_one_block_launches=one_launches, k1_every_width_launches=every["k1"],
+                k2_every_width_launches=every["k2"], rows=rows)
 
 
 def window_phase(dev, card, run: dict, workdir: str) -> int:
@@ -1370,9 +1469,13 @@ def main(argv=None) -> int:
         f"device memory: {json.dumps({'wide': wide['k1_device_h_launches']})}; "
         f"segdp_pipelined (K2): {json.dumps({'pipelined': pipe_launches})}, on its cluster "
         f"route: {json.dumps({'wide': wide['k2_cluster_launches']})}, on its one-block route "
-        f"with H in device memory: {json.dumps({'wide': wide['k2_one_block_launches']})}")
+        f"with H in device memory: {json.dumps({'wide': wide['k2_one_block_launches']})}; "
+        f"past the widths a ring of whole planes held and with the row ring forced, on the "
+        f"cluster routes: K1 {wide['k1_every_width_launches']}, K2 "
+        f"{wide['k2_every_width_launches']}")
     if min(wide["k1_cluster_launches"], wide["k2_cluster_launches"],
-           wide["k2_one_block_launches"]) <= 0:
+           wide["k2_one_block_launches"], wide["k1_every_width_launches"],
+           wide["k2_every_width_launches"]) <= 0:
         raise RuntimeError("a wide route was launched no time in its run")
     log(card)
     kern.update(wide["rows"])
@@ -1380,7 +1483,8 @@ def main(argv=None) -> int:
             ("segdp_pipelined", "freddie_tpu/ops/segdp_pallas.py:445", pipe_launches),
             ("K1 wide (cluster wavefront)", "freddie_tpu/ops/segdp_pallas.py:65",
              wide["k1_cluster_launches"]),
-            ("K2 wide", "freddie_tpu/ops/segdp_pallas.py:445", wide["k2_cluster_launches"]),
+            ("K2 wide", "freddie_tpu/ops/segdp_pallas.py:445",
+             wide["k2_cluster_launches"] + wide["k2_every_width_launches"]),
             ("K2 wide, one block an SM", "freddie_tpu/ops/segdp_pallas.py:445",
              wide["k2_one_block_launches"])]
     log(json.dumps({"kernels": [{

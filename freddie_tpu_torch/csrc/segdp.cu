@@ -73,21 +73,32 @@ cudaError_t grid_of_clusters(const void* kernel, int B, int N, size_t smem, cuda
   return cudaSuccess;
 }
 
+// The instantiation of a cluster kernel for H's home and the ring's kind.
+template <class Kernel>
+Kernel pick(bool smem_h, bool row_ring, Kernel plane_smem, Kernel plane_dev, Kernel rows_smem,
+            Kernel rows_dev) {
+  if (row_ring) return smem_h ? rows_smem : rows_dev;
+  return smem_h ? plane_smem : plane_dev;
+}
+
 // K1's cluster wavefront at width P, H in shared memory when smem_h, on
-// clusters of N blocks: the kernel, with its shared memory opted in (and
-// a cluster of more than 8 blocks allowed), and the launch's
+// clusters of N blocks with each warp's ring of rows when row_ring, else
+// the ring of whole planes: the kernel, with its shared memory opted in
+// (and a cluster of more than 8 blocks allowed), and the launch's
 // configuration in *cfg, whose attribute array is *attr.
-cudaError_t cluster_config(int B, int P, int N, bool smem_h, cudaStream_t s,
+using ClusterKernel = decltype(&segdp::wavefront_cluster_kernel<true, true>);
+cudaError_t cluster_config(int B, int P, int N, bool smem_h, bool row_ring, cudaStream_t s,
                            cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
-                           const void** kernel) {
+                           ClusterKernel* kernel) {
   if (N < 1 || N > segdp::kMaxCluster) return cudaErrorInvalidValue;
-  *kernel = smem_h ? reinterpret_cast<const void*>(&segdp::wavefront_cluster_kernel<true>)
-                   : reinterpret_cast<const void*>(&segdp::wavefront_cluster_kernel<false>);
-  const size_t smem = segdp::cluster_smem_bytes(P, N, smem_h);
-  cudaError_t err = smem_h ? opt_in_smem(segdp::wavefront_cluster_kernel<true>, smem)
-                           : opt_in_smem(segdp::wavefront_cluster_kernel<false>, smem);
+  *kernel = pick<ClusterKernel>(smem_h, row_ring, &segdp::wavefront_cluster_kernel<true, false>,
+                                &segdp::wavefront_cluster_kernel<false, false>,
+                                &segdp::wavefront_cluster_kernel<true, true>,
+                                &segdp::wavefront_cluster_kernel<false, true>);
+  const size_t smem = segdp::cluster_smem_bytes(P, N, smem_h, segdp::kWarps, row_ring);
+  cudaError_t err = opt_in_smem(*kernel, smem);
   if (err != cudaSuccess) return err;
-  return grid_of_clusters(*kernel, B, N, smem, s, cfg, attr);
+  return grid_of_clusters(reinterpret_cast<const void*>(*kernel), B, N, smem, s, cfg, attr);
 }
 
 // K2 at width P, one instantiation per PairSmem size as for K1's launch
@@ -108,19 +119,23 @@ PipeKernel pipe_kernel(int P, bool smem_h, size_t* dyn) {
 }
 
 // K2's cluster route at width P, H in shared memory when smem_h, on G
-// clusters of N blocks: as cluster_config for K1's cluster wavefront.
-cudaError_t pipe_cluster_config(int G, int P, int N, bool smem_h, cudaStream_t s,
-                                cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
-                                const void** kernel) {
+// clusters of N blocks, the consumers' ring of rows when row_ring: as
+// cluster_config for K1's cluster wavefront.
+using PipeClusterKernel = decltype(&segdp::segdp_pipelined_cluster_kernel<true, true>);
+cudaError_t pipe_cluster_config(int G, int P, int N, bool smem_h, bool row_ring,
+                                cudaStream_t s, cudaLaunchConfig_t* cfg,
+                                cudaLaunchAttribute* attr, PipeClusterKernel* kernel) {
   if (N < 1 || N > segdp::kMaxCluster) return cudaErrorInvalidValue;
-  *kernel = smem_h
-                ? reinterpret_cast<const void*>(&segdp::segdp_pipelined_cluster_kernel<true>)
-                : reinterpret_cast<const void*>(&segdp::segdp_pipelined_cluster_kernel<false>);
-  const size_t smem = segdp::pipelined_cluster_smem_bytes(P, N, smem_h);
-  cudaError_t err = smem_h ? opt_in_smem(segdp::segdp_pipelined_cluster_kernel<true>, smem)
-                           : opt_in_smem(segdp::segdp_pipelined_cluster_kernel<false>, smem);
+  *kernel = pick<PipeClusterKernel>(smem_h, row_ring,
+                                    &segdp::segdp_pipelined_cluster_kernel<true, false>,
+                                    &segdp::segdp_pipelined_cluster_kernel<false, false>,
+                                    &segdp::segdp_pipelined_cluster_kernel<true, true>,
+                                    &segdp::segdp_pipelined_cluster_kernel<false, true>);
+  const size_t smem = segdp::pipelined_cluster_smem_bytes(P, N, smem_h, row_ring);
+  cudaError_t err = opt_in_smem(*kernel, smem);
   if (err != cudaSuccess) return err;
-  return grid_of_clusters(*kernel, G, N, smem, s, cfg, attr, segdp::kPipeThreads);
+  return grid_of_clusters(reinterpret_cast<const void*>(*kernel), G, N, smem, s, cfg, attr,
+                          segdp::kPipeThreads);
 }
 
 // What the runtime reports for a cluster kernel configured in cfg (err:
@@ -149,16 +164,18 @@ extern "C" {
 // largest weight, chains: (B, P+2) the walked breakpoint chains. The
 // wavefront is wavefront_kernel (one block a problem, H in its shared
 // memory) when cluster_n is 0, and otherwise wavefront_cluster_kernel on
-// clusters of cluster_n blocks, with H in their shared memory when P <=
-// smem_max_p and in H: (B, P, P) f32 scratch in device memory above (H
-// may be null when P <= smem_max_p). Returns 0 or the cudaError_t of the
-// first launch the runtime refused (cudaGetLastError after each launch),
-// a cluster that cannot be scheduled included.
+// clusters of cluster_n blocks with each warp's ring of rows when
+// row_ring (else the ring of whole planes), with H
+// in their shared memory when P <= smem_max_p and in H: (B, P, P) f32
+// scratch in device memory above (H may be null when P <= smem_max_p).
+// Returns 0 or the cudaError_t of the first launch the runtime refused
+// (cudaGetLastError after each launch), a cluster that cannot be
+// scheduled included.
 int segdp_solve(const int* Cs, const int* Thi, const int* Tlo, const int* W,
                 const int* wsum, const int* wmax, const int* y, const int* n_cand,
                 float* OT, float* INS, float* H, int* K, int* best_j, int* best_k,
                 int* chains, int B, int P, int R, int read_support, int smem_max_p,
-                int cluster_n, void* stream) {
+                int cluster_n, int row_ring, void* stream) {
   const bool smem_h = P <= smem_max_p;
   if (B <= 0 || P <= 0 || R < 0 || R % segdp::kMmaStage != 0 || B > 65535 ||
       cluster_n < 0 || (!smem_h && (H == nullptr || cluster_n == 0)))
@@ -183,26 +200,24 @@ int segdp_solve(const int* Cs, const int* Thi, const int* Tlo, const int* W,
   }
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  const void* kernel = nullptr;
-  err = cluster_config(B, P, cluster_n, smem_h, s, &cfg, &attr, &kernel);
+  ClusterKernel kernel = nullptr;
+  err = cluster_config(B, P, cluster_n, smem_h, row_ring != 0, s, &cfg, &attr, &kernel);
   if (err != cudaSuccess) return (int)err;
-  err = smem_h ? cudaLaunchKernelEx(&cfg, segdp::wavefront_cluster_kernel<true>, OT, INS, y,
-                                    n_cand, H, K, best_j, best_k, chains, P)
-               : cudaLaunchKernelEx(&cfg, segdp::wavefront_cluster_kernel<false>, OT, INS, y,
-                                    n_cand, H, K, best_j, best_k, chains, P);
+  err = cudaLaunchKernelEx(&cfg, kernel, OT, INS, y, n_cand, H, K, best_j, best_k, chains, P);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
 // What the runtime reports for K1's cluster wavefront at width P on
-// clusters of N blocks (H in shared memory when smem_h) on the current
-// device, as occupancy_of says.
-int segdp_cluster_occupancy(int P, int N, int smem_h, int* out) {
+// clusters of N blocks (H in shared memory when smem_h, the ring of rows
+// when row_ring) on the current device, as occupancy_of says.
+int segdp_cluster_occupancy(int P, int N, int smem_h, int row_ring, int* out) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  const void* kernel = nullptr;
-  const cudaError_t err = cluster_config(1, P, N, smem_h != 0, nullptr, &cfg, &attr, &kernel);
-  return occupancy_of(err, kernel, cfg, out);
+  ClusterKernel kernel = nullptr;
+  const cudaError_t err =
+      cluster_config(1, P, N, smem_h != 0, row_ring != 0, nullptr, &cfg, &attr, &kernel);
+  return occupancy_of(err, reinterpret_cast<const void*>(kernel), cfg, out);
 }
 
 // `steps` rounds of the cluster barrier alone on B clusters of N blocks:
@@ -273,42 +288,39 @@ int segdp_solve_pipelined(const int* Cs, const int* Thi, const int* Tlo,
 }
 
 // The same for K2's cluster route.
-int segdp_pipelined_cluster_occupancy(int P, int N, int smem_h, int* out) {
+int segdp_pipelined_cluster_occupancy(int P, int N, int smem_h, int row_ring, int* out) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  const void* kernel = nullptr;
+  PipeClusterKernel kernel = nullptr;
   const cudaError_t err =
-      pipe_cluster_config(1, P, N, smem_h != 0, nullptr, &cfg, &attr, &kernel);
-  return occupancy_of(err, kernel, cfg, out);
+      pipe_cluster_config(1, P, N, smem_h != 0, row_ring != 0, nullptr, &cfg, &attr, &kernel);
+  return occupancy_of(err, reinterpret_cast<const void*>(kernel), cfg, out);
 }
 
 // Solves B padded problems with K2's cluster route in one launch of G
-// clusters of cluster_n blocks (1 <= G <= B); R, wmax and chains as for
-// segdp_solve. OT: (G, 2, P, P, P) and INS: (G, 2, P, P) scratch; H: (G,
-// P, P) scratch, used when P > smem_max_p (may be null otherwise).
+// clusters of cluster_n blocks (1 <= G <= B), the ring (row_ring) as for
+// segdp_solve; R, wmax and chains as for segdp_solve. OT: (G, 2, P, P,
+// P) and INS: (G, 2, P, P) scratch; H: (G, P, P) scratch, used when P >
+// smem_max_p (may be null otherwise).
 // Returns 0 or the cudaError_t of the refused launch.
 int segdp_solve_pipelined_cluster(const int* Cs, const int* Thi, const int* Tlo, const int* W,
                                   const int* wsum, const int* wmax, const int* y,
                                   const int* n_cand, float* OT, float* INS, float* H, int* K,
                                   int* best_j, int* best_k, int* chains, int B, int P, int R,
                                   int read_support, int G, int cluster_n, int smem_max_p,
-                                  void* stream) {
+                                  int row_ring, void* stream) {
   const bool smem_h = P <= smem_max_p;
   if (B <= 0 || P <= 0 || R < 0 || R % segdp::kMmaStage != 0 || G <= 0 || G > B ||
       (!smem_h && H == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  const void* kernel = nullptr;
-  cudaError_t err = pipe_cluster_config(G, P, cluster_n, smem_h, static_cast<cudaStream_t>(stream),
-                                        &cfg, &attr, &kernel);
+  PipeClusterKernel kernel = nullptr;
+  cudaError_t err = pipe_cluster_config(G, P, cluster_n, smem_h, row_ring != 0,
+                                        static_cast<cudaStream_t>(stream), &cfg, &attr, &kernel);
   if (err != cudaSuccess) return (int)err;
-  err = smem_h ? cudaLaunchKernelEx(&cfg, segdp::segdp_pipelined_cluster_kernel<true>, Cs, Thi,
-                                    Tlo, W, wsum, wmax, y, n_cand, OT, INS, H, K, best_j, best_k,
-                                    chains, B, P, R, read_support)
-               : cudaLaunchKernelEx(&cfg, segdp::segdp_pipelined_cluster_kernel<false>, Cs, Thi,
-                                    Tlo, W, wsum, wmax, y, n_cand, OT, INS, H, K, best_j, best_k,
-                                    chains, B, P, R, read_support);
+  err = cudaLaunchKernelEx(&cfg, kernel, Cs, Thi, Tlo, W, wsum, wmax, y, n_cand, OT, INS, H, K,
+                           best_j, best_k, chains, B, P, R, read_support);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

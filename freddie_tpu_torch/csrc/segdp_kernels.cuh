@@ -42,19 +42,28 @@
 //    rows k = r, r+N, ... (cyclic, so the shrinking triangle stays even),
 //    so a step's rows are spread over N SMs; (2) the outside planes do not
 //    depend on the wavefront (phase 1 wrote all of them before), so each
-//    thread starts the cp.async copies of the next step's plane -- the
-//    live part of its own rows, exactly the words it will read -- before
-//    it computes this one, and a step reads only shared memory; (3) each
-//    block keeps its rows of H in its own shared memory, as triangles
-//    (row k holds columns k+1..P-1 only, which is all the sweep touches),
-//    so every read of H is local; the one value a row produces per step,
-//    H[j][k], goes to row j's owner by a DSMEM store. One cluster barrier
-//    per step (arrive.release, wait.acquire) orders those stores before
-//    the next step's reads and frees the ring stage the step read. What
-//    is left per step is the barrier's round trip across the cluster and
-//    one row walk in shared memory; chip_smoke times the first alone.
-//    H lives in the cluster's shared memory up to the widest P whose
-//    triangle and the two-plane ring fit a block
+//    thread copies the words of the rows it will walk -- the live part of
+//    each, exactly the words it will read -- into shared memory with
+//    cp.async ahead of the step that reads them, and a step reads only
+//    shared memory; (3) each block keeps its rows of H in its own shared
+//    memory, as triangles (row k holds columns k+1..P-1 only, which is all
+//    the sweep touches), so every read of H is local; the one value a row
+//    produces per step, H[j][k], goes to row j's owner by a DSMEM store.
+//    One cluster barrier per step (arrive.release, wait.acquire) orders
+//    those stores before the next step's reads. What is left per step is
+//    the barrier's round trip across the cluster and the row walks in
+//    shared memory; chip_smoke times the first alone. The copies go into
+//    one of two rings, chosen by shape (segdp_cuda.row_ring_for; template
+//    flag kRowRing): where it fits, a ring of two whole planes, each
+//    block's rows of plane j-1 copied while step j runs; above that, each
+//    warp's ring of kRingRows rows of P floats, which it fills in the
+//    order it walks its rows, a row ahead and across the step barrier.
+//    Two planes grow with P^2/N and stop fitting a block (P = 674 on 8
+//    blocks, 948 on 16); the row ring grows with P, so the kernel takes
+//    every P whose scratch fits the card. On one H100 the row ring took
+//    1.10-1.15x the plane ring's launch time where both fit (PERF.md,
+//    PR 10), hence both. H lives in the cluster's shared memory up to the
+//    widest P whose triangle fits a block beside the ring of rows
 //    (segdp_cuda.cluster_smem_max_p); above that the same kernel keeps
 //    its rows in a (B, P, P) f32 plane in device memory (template flag
 //    kSmemH false), and a cap of 0 forces that route at any P, which is
@@ -176,8 +185,8 @@
 //    r+N, ... of the cluster's problem, so phase 1 runs on N SMs;
 //  - the consumers run the cluster wavefront of K1
 //    (wavefront_cluster_body): rank r owns rows k = r, r+N, ..., keeps
-//    their H in its shared memory, streams their outside planes a step
-//    ahead and stores H[j][k] into row j's owner.
+//    their H in its shared memory, streams their rows of the outside
+//    planes ahead and stores H[j][k] into row j's owner.
 //  - The ownership lines up: phase 1 for k writes row k of every outside
 //    plane and inside(., k), which is what the owner of row k reads, so a
 //    block's consumers read what its own producers wrote, but for
@@ -194,10 +203,13 @@
 //    the clusters need share nothing; a wide batch rarely has more
 //    problems than clusters, and then each cluster's next phase 1
 //    overlaps its previous wavefront.
-// Its block holds PairSmem<128>, the mbarriers and K1's cluster layout;
-// H fits beside the ring up to segdp_cuda.k2_cluster_smem_max_p(N), the
-// ring alone up to k2_cluster_max_p(N); above that the one-block route
-// above takes P.
+// Its block holds PairSmem<128>, the mbarriers and K1's cluster layout
+// for its 4 consumer warps; H fits beside the ring of rows up to
+// segdp_cuda.k2_cluster_smem_max_p(N) and is a (G, P, P) device-memory
+// plane a cluster above, so the route takes every P whose scratch fits
+// the card. The one-block route above runs by shape only below
+// K2_CLUSTER_MIN_P; from there on it is reached only when forced, as the
+// card tests' independent witness.
 //
 // -inf is only ever added to finite values or to -inf, so no NaN arises.
 
@@ -226,7 +238,11 @@ constexpr int kProducerRegs = 104;
 constexpr int kMmaNt = 32 / kMmaWarps;  // 8-column product tiles a warp owns
 constexpr int kOpRow = 2 * kMmaStage + 32;  // bytes of one operand row of a stage, padded
 constexpr int kConsumerThreads = 32 * kConsumerWarps;
-constexpr int kOtStages = 2;  // the cluster wavefront's ring of outside planes
+// The cluster wavefront's rings: of whole outside planes, kOtStages
+// triangles a block; or of rows, kRingRows row slots a warp
+// (segdp_cuda.row_ring_for chooses by shape).
+constexpr int kOtStages = 2;
+constexpr int kRingRows = 2;
 constexpr int kMaxCluster = 16;  // blocks a cluster may have (16 is non-portable)
 // K2's cluster route: its mbarriers in each block, two of each kind (a
 // ring, indexed by step or slot parity), and the bytes reserved for them.
@@ -806,11 +822,16 @@ __host__ __device__ __forceinline__ int tri_floats(int r, int N, int P) {
   return r < P ? tri_row_off((P - 1 - r) / N + 1, r, N, P) : 0;
 }
 
-// Dynamic shared memory of wavefront_cluster_kernel at width P with N
-// blocks a cluster: H's triangle when it lives there, kOtStages triangles
-// of outside planes, ys, and the cluster's argmax slots.
-__host__ __device__ __forceinline__ int cluster_smem_bytes(int P, int N, bool smem_h) {
-  return 4 * ((smem_h ? 1 : 0) + kOtStages) * tri_floats(0, N, P) + 4 * P + 8 * kMaxCluster;
+// Dynamic shared memory of wavefront_cluster_body at width P with N
+// blocks a cluster on nwarps warps: H's triangle when it lives there, the
+// ring -- each warp's kRingRows rows of P floats when row_ring, else
+// kOtStages triangles of outside planes --, ys, and the cluster's argmax
+// slots.
+__host__ __device__ __forceinline__ int cluster_smem_bytes(int P, int N, bool smem_h, int nwarps,
+                                                           bool row_ring) {
+  const int tri = tri_floats(0, N, P);
+  const int ring = row_ring ? nwarps * kRingRows * P : kOtStages * tri;
+  return 4 * ((smem_h ? tri : 0) + ring + P) + 8 * kMaxCluster;
 }
 
 // The cluster wavefront of one problem, on `nwarps` warps (tid
@@ -820,31 +841,46 @@ __host__ __device__ __forceinline__ int cluster_smem_bytes(int P, int N, bool sm
 // design and what bounds it are in the header. The block of rank r owns
 // rows k = r, r+N, ... of H and computes H[j][k], K[j][k] for those k at
 // every step j, from its own rows of H and from outside plane j, which
-// its threads copied into a ring stage the step before (each thread
-// copies exactly the words it reads later, so its cp.async wait orders
-// them; the ring slot is rewritten only after the step barrier that ends
-// its last reads). H[j][k] goes to row j's owner: through DSMEM when H is
-// in shared memory (kSmemH), into Hgb: (P, P) f32 in device memory
-// otherwise (written and read by the cluster, so neither const nor
-// __restrict__). `smem` is the body's shared memory, laid out alike in
-// every block (cluster_smem_bytes). step_sync() is the step barrier over
-// the body's threads in every block of the cluster: what they wrote
-// before it (to shared memory, theirs or another block's, and to device
-// memory) is visible to all of them after it. It orders the
-// initialisation before the first step, step j's writes before the reads
-// of step j-1, and the merge below before rank 0 reads it; `bar` (with
-// the body's thread count) is a barrier over the body's threads of this
-// block alone. The top level: each block's first argmax over its rows,
-// merged in rank 0's slots through DSMEM under (value desc, index asc);
-// the step barrier after the merge writes is the body's last access to
-// another block's shared memory. Rank 0's thread 0 then walks the chain
-// from K in device memory. OTb, INb, yb, n_cand, Kb, bj_out, bk_out and
-// chain as wavefront_body's.
-template <bool kSmemH, class StepSync>
+// its warps walk row by row: warp w takes rows li = first_row(j) + w,
+// + nwarps, ... (k = r + li*N). Each word of a row is copied into shared
+// memory ahead of the step by the thread that reads it, so that thread's
+// cp.async wait orders it, into one of two rings (segdp_cuda.row_ring_for
+// chooses by shape):
+//  - !kRowRing, the ring of whole planes: at step j each thread copies
+//    its words of plane j-1's rows into ring stage (j-1) % kOtStages, a
+//    triangle laid out as H's, one commit group a plane; the stage is
+//    rewritten only after the step barrier that ends its last reads. Two
+//    triangles a block grow with P^2/N, so this ring is taken where it
+//    fits (P up to 774 on 16 blocks with H beside it, 550 on 8).
+//  - kRowRing, each warp's ring of kRingRows rows of P floats: the warp
+//    streams its rows into it in the order it walks them, kRingRows-1
+//    rows ahead of its walk and across the step barrier (the outside
+//    planes do not change during the wavefront), one commit group a row;
+//    lane l owns a slot's words l, l+32, ... whatever
+//    the row, and a slot is refilled only after a __syncwarp that follows
+//    every lane's reads of it, so no block- or cluster-wide barrier frees
+//    a slot. It grows with P, not P^2: any P whose scratch fits the card.
+// H[j][k] goes to row j's owner: through DSMEM when H is in shared memory
+// (kSmemH), into Hgb: (P, P) f32 in device memory otherwise (written and
+// read by the cluster, so neither const nor __restrict__). `smem` is the
+// body's shared memory, laid out alike in every block
+// (cluster_smem_bytes with the same nwarps and ring). step_sync() is the step barrier over the body's threads in
+// every block of the cluster: what they wrote before it (to shared memory,
+// theirs or another block's, and to device memory) is visible to all of
+// them after it. It orders the initialisation before the first step, step
+// j's writes before the reads of step j-1, and the merge below before rank
+// 0 reads it; `bar` (with the body's thread count) is a barrier over the
+// body's threads of this block alone. The top level: each block's first
+// argmax over its rows, merged in rank 0's slots through DSMEM under
+// (value desc, index asc); the step barrier after the merge writes is the
+// body's last access to another block's shared memory. Rank 0's thread 0
+// then walks the chain from K in device memory. OTb, INb, yb, n_cand, Kb,
+// bj_out, bk_out and chain as wavefront_body's.
+template <bool kSmemH, bool kRowRing, class StepSync>
 __device__ __forceinline__ void wavefront_cluster_body(
     const float* OTb, const float* INb, const int* __restrict__ yb, int n_cand, float* Hgb,
-    int* Kb, int* bj_out, int* bk_out, int* chain, int P, unsigned char* smem, int tid,
-    int nwarps, int bar, StepSync step_sync) {
+    int* Kb, int* bj_out, int* bk_out, int* chain, int P, unsigned char* smem,
+    int tid, int nwarps, int bar, StepSync step_sync) {
   __shared__ float wred_v[kWarps];
   __shared__ int wred_i[kWarps];
 
@@ -859,8 +895,9 @@ __device__ __forceinline__ void wavefront_cluster_body(
 
   const int tri = tri_floats(0, N, P);
   float* Hs = reinterpret_cast<float*>(smem);  // kSmemH: this block's rows of H
-  float* ring = Hs + (kSmemH ? tri : 0);                  // kOtStages outside planes
-  int* ys = reinterpret_cast<int*>(ring + kOtStages * tri);
+  // kRowRing: [warp][slot][P]; else [stage][triangle]
+  float* ring = Hs + (kSmemH ? tri : 0);
+  int* ys = reinterpret_cast<int*>(ring + (kRowRing ? nwarps * kRingRows * P : kOtStages * tri));
   float* merge_v = reinterpret_cast<float*>(ys + P);  // [rank]: the blocks' argmaxes, in rank 0
   int* merge_i = reinterpret_cast<int*>(merge_v + kMaxCluster);
 
@@ -870,6 +907,32 @@ __device__ __forceinline__ void wavefront_cluster_body(
   };
   // The first row this block owns below... above j: the least li with k > j.
   auto first_row = [&](int j) { return j < r ? 0 : (j - r) / N + 1; };
+  // Step j for row k = r + li*N, from O[q] = outside(j, k, q): H[j][k] =
+  // inside(j, k) + the first-index max over q of O[q] + H[k][q] (masked
+  // by small(k, q)), stored into row j's owner when finite; K[j][k] its q.
+  auto walk = [&](int j, int li, int k, const float* O) {
+    const float* Hr = h_row(li, k);
+    float bv = neg;
+    int bi = P;
+    for (int q = k + 1 + lane; q <= end; q += 32) {
+      if (ys[q] - ys[k] < kMinSegLen) continue;  // small(k, k_)
+      const float v = O[q] + Hr[q];
+      if (v > bv) {
+        bv = v;
+        bi = q;
+      }
+    }
+    warp_argmax(bv, bi);
+    if (lane == 0 && bv > neg) {
+      const float h = INb[(long long)j * P + k] + bv;
+      const int owner = j % N;
+      if (kSmemH)
+        cluster_map(Hs, owner)[tri_row_off(j / N, owner, N, P) + (k - j - 1)] = h;
+      else
+        Hgb[(long long)j * P + k] = h;
+      Kb[(long long)j * P + k] = bi;
+    }
+  };
 
   for (int i = tid; i < P; i += nthreads) ys[i] = yb[i];
   // H init of the rows this block owns: column `end` holds inside(k, end)
@@ -881,55 +944,84 @@ __device__ __forceinline__ void wavefront_cluster_body(
     for (int q = tid; q < P; q += nthreads) Kb[(long long)k * P + q] = -1;
   }
 
-  // Starts the copies of plane j's live rows that this block owns (rows
-  // j < k < end with !small(j, k), columns k < q <= end) into ring stage
-  // j % kOtStages, each by the thread that reads it at step j; one commit
-  // group per plane, empty past plane 0.
-  auto fetch = [&](int j) {
-    if (j >= 0) {
-      float* st = ring + (j % kOtStages) * tri;
-      const float* O = OTb + (long long)j * PP;
-      for (int li = first_row(j) + warp, k = r + li * N; k < end; li += nwarps, k += nwarps * N) {
-        if (ys[k] - ys[j] < kMinSegLen) continue;
-        float* dst = st + tri_row_off(li, r, N, P) - (k + 1);
-        for (int q = k + 1 + lane; q <= end; q += 32) cp_async_4(dst + q, O + (long long)k * P + q);
+  if constexpr (kRowRing) {
+    ring += warp * kRingRows * P;  // this warp's
+    // This warp's stream of rows, in the order it walks them: step j's
+    // live rows (j < k < end, !small(j, k)) li = first_row(j) + warp,
+    // + nwarps, ..., then step j-1's, down to step 0. seek moves the
+    // cursor (j, li) to the first of them at or after it; j < 0 once none
+    // is left.
+    auto seek = [&](int& j, int& li) {
+      while (j >= 0) {
+        for (int k = r + li * N; k < end; li += nwarps, k += nwarps * N)
+          if (ys[k] - ys[j] >= kMinSegLen) return;
+        if (--j >= 0) li = first_row(j) + warp;
       }
-    }
-    cp_async_commit();
-  };
+    };
+    // The fetch's cursor (fj, fli) runs kRingRows-1 rows ahead of the walk's
+    // (wj, wli): fetch starts the copies of its row's live columns
+    // k < q <= end into slot fslot (word q-k-1 by lane (q-k-1) % 32) and
+    // commits them as one group, an empty one past the stream's end.
+    int fj = P - 2, fli = first_row(P - 2) + warp, fslot = 0;
+    auto fetch = [&] {
+      if (fj >= 0) {
+        const int k = r + fli * N;
+        const float* src = OTb + (long long)fj * PP + (long long)k * P + (k + 1);
+        float* dst = ring + fslot * P;
+        for (int c = lane; c < end - k; c += 32) cp_async_4(dst + c, src + c);
+        fli += nwarps;
+        seek(fj, fli);
+      }
+      cp_async_commit();
+      fslot = fslot + 1 == kRingRows ? 0 : fslot + 1;
+    };
 
-  step_sync();  // every block's rows and ys initialised before any step writes to them
-  fetch(P - 2);
-  for (int j = P - 2; j >= 0; --j) {
-    fetch(j - 1);  // the next step's plane, in flight during this one
-    cp_async_wait<kOtStages - 1>();  // this thread's copies of plane j have landed
-    const float* st = ring + (j % kOtStages) * tri;
-    for (int li = first_row(j) + warp, k = r + li * N; k < end; li += nwarps, k += nwarps * N) {
-      if (ys[k] - ys[j] < kMinSegLen) continue;  // small(j, k): row invalid
-      const float* O = st + tri_row_off(li, r, N, P) - (k + 1);
-      const float* Hr = h_row(li, k);
-      float bv = neg;
-      int bi = P;
-      for (int q = k + 1 + lane; q <= end; q += 32) {
-        if (ys[q] - ys[k] < kMinSegLen) continue;  // small(k, k_)
-        const float v = O[q] + Hr[q];
-        if (v > bv) {
-          bv = v;
-          bi = q;
+    step_sync();  // every block's rows and ys initialised before any step writes to them
+    seek(fj, fli);
+    int wj = fj, wli = fli, wslot = 0;
+    for (int i = 1; i < kRingRows; ++i) fetch();
+    for (int j = P - 2; j >= 0; --j) {
+      for (; wj == j; wli += nwarps, seek(wj, wli), wslot = wslot + 1 == kRingRows ? 0 : wslot + 1) {
+        __syncwarp();  // every lane is done with the slot that fetch refills (the last row's)
+        fetch();
+        cp_async_wait<kRingRows - 1>();  // this lane's copies of the walk's row have landed
+        const int k = r + wli * N;
+        walk(j, wli, k, ring + wslot * P - (k + 1));
+      }
+      step_sync();  // step j's writes before step j-1's reads
+    }
+  } else {
+    // Starts the copies of plane j's live rows that this block owns (rows
+    // j < k < end with !small(j, k), columns k < q <= end) into ring stage
+    // j % kOtStages, each by the thread that reads it at step j; one
+    // commit group per plane, empty past plane 0.
+    auto fetch = [&](int j) {
+      if (j >= 0) {
+        float* st = ring + (j % kOtStages) * tri;
+        const float* O = OTb + (long long)j * PP;
+        for (int li = first_row(j) + warp, k = r + li * N; k < end;
+             li += nwarps, k += nwarps * N) {
+          if (ys[k] - ys[j] < kMinSegLen) continue;
+          float* dst = st + tri_row_off(li, r, N, P) - (k + 1);
+          for (int q = k + 1 + lane; q <= end; q += 32)
+            cp_async_4(dst + q, O + (long long)k * P + q);
         }
       }
-      warp_argmax(bv, bi);
-      if (lane == 0 && bv > neg) {
-        const float h = INb[(long long)j * P + k] + bv;
-        const int owner = j % N;
-        if (kSmemH)
-          cluster_map(Hs, owner)[tri_row_off(j / N, owner, N, P) + (k - j - 1)] = h;
-        else
-          Hgb[(long long)j * P + k] = h;
-        Kb[(long long)j * P + k] = bi;
+      cp_async_commit();
+    };
+
+    step_sync();  // every block's rows and ys initialised before any step writes to them
+    fetch(P - 2);
+    for (int j = P - 2; j >= 0; --j) {
+      fetch(j - 1);  // the next step's plane, in flight during this one
+      cp_async_wait<kOtStages - 1>();  // this thread's copies of plane j have landed
+      const float* st = ring + (j % kOtStages) * tri;
+      for (int li = first_row(j) + warp, k = r + li * N; k < end; li += nwarps, k += nwarps * N) {
+        if (ys[k] - ys[j] < kMinSegLen) continue;  // small(j, k): row invalid
+        walk(j, li, k, st + tri_row_off(li, r, N, P) - (k + 1));
       }
+      step_sync();  // step j's writes before step j-1's reads; the stage is free again
     }
-    step_sync();  // step j's writes before step j-1's reads; the stage is free again
   }
 
   // Top level over the rows this block owns: D0[j][k] = inside(0,j) +
@@ -994,8 +1086,9 @@ __device__ __forceinline__ void wavefront_cluster_body(
 // which every block also passes after the merge, its last access to
 // another block's shared memory, before it exits. Hg: (B, P, P) f32, the
 // problems' H planes when H is in device memory (not kSmemH). Inputs and
-// outputs as wavefront_kernel's.
-template <bool kSmemH>
+// outputs as wavefront_kernel's. Dynamic shared memory:
+// cluster_smem_bytes(P, N, kSmemH, kWarps, kRowRing).
+template <bool kSmemH, bool kRowRing>
 __global__ void __launch_bounds__(kThreads)
 wavefront_cluster_kernel(const float* __restrict__ OT, const float* __restrict__ INS,
                          const int* __restrict__ y, const int* __restrict__ n_cand, float* Hg,
@@ -1004,10 +1097,10 @@ wavefront_cluster_kernel(const float* __restrict__ OT, const float* __restrict__
   extern __shared__ __align__(16) unsigned char segdp_dyn_smem[];
   const int b = blockIdx.x / cluster_nblocks();
   const long long PP = (long long)P * P;
-  wavefront_cluster_body<kSmemH>(OT + b * PP * P, INS + b * PP, y + (long long)b * P, n_cand[b],
-                                 Hg + b * PP, K + b * PP, best_j + b, best_k + b,
-                                 chains + (long long)b * (P + 2), P, segdp_dyn_smem, threadIdx.x,
-                                 kWarps, 0, [] { cluster_sync(); });
+  wavefront_cluster_body<kSmemH, kRowRing>(
+      OT + b * PP * P, INS + b * PP, y + (long long)b * P, n_cand[b], Hg + b * PP, K + b * PP,
+      best_j + b, best_k + b, chains + (long long)b * (P + 2), P, segdp_dyn_smem,
+      threadIdx.x, kWarps, 0, [] { cluster_sync(); });
 }
 
 // The wavefront's latency floor: `steps` rounds of the cluster barrier
@@ -1093,10 +1186,13 @@ segdp_pipelined_kernel(const int* __restrict__ Cs, const int* __restrict__ Thi,
 }
 
 // Dynamic shared memory of a block of K2's cluster route at width P on N
-// blocks a cluster: the producers' PairSmem<128>, the mbarriers, and the
-// consumers' cluster wavefront (cluster_smem_bytes), in that order.
-__host__ __device__ __forceinline__ int pipelined_cluster_smem_bytes(int P, int N, bool smem_h) {
-  return (int)sizeof(PairSmem<2 * kTile>) + kPipeMbarBytes + cluster_smem_bytes(P, N, smem_h);
+// blocks a cluster, its consumers' ring of rows when row_ring: the
+// producers' PairSmem<128>, the mbarriers, and the consumers' cluster
+// wavefront (cluster_smem_bytes), in that order.
+__host__ __device__ __forceinline__ int pipelined_cluster_smem_bytes(int P, int N, bool smem_h,
+                                                                     bool row_ring) {
+  return (int)sizeof(PairSmem<2 * kTile>) + kPipeMbarBytes +
+         cluster_smem_bytes(P, N, smem_h, kConsumerWarps, row_ring);
 }
 
 // K2's route for wide problems, grid (N*G) in G thread-block clusters of N
@@ -1125,7 +1221,7 @@ __host__ __device__ __forceinline__ int pipelined_cluster_smem_bytes(int P, int 
 // initialisation and one before it exits, so no block arrives on another's
 // barriers before they exist or after it has gone.
 // Dynamic shared memory: pipelined_cluster_smem_bytes.
-template <bool kSmemH>
+template <bool kSmemH, bool kRowRing>
 __global__ void __launch_bounds__(kPipeThreads, 1)
 segdp_pipelined_cluster_kernel(const int* __restrict__ Cs, const int* __restrict__ Thi,
                                const int* __restrict__ Tlo, const int* __restrict__ Wt,
@@ -1182,10 +1278,10 @@ segdp_pipelined_cluster_kernel(const int* __restrict__ Cs, const int* __restrict
       const int s = t & 1;
       mbar_wait(&bars[kFullMbar + s], (t >> 1) & 1);
       const long long slot = 2LL * c + s;
-      wavefront_cluster_body<kSmemH>(OT + slot * PPP, INS + slot * PP, y + (long long)b * P,
-                                     n_cand[b], Hg + c * PP, K + b * PP, best_j + b,
-                                     best_k + b, chains + (long long)b * (P + 2), P, wave, ctid,
-                                     kConsumerWarps, kConsumerBar, step_sync);
+      wavefront_cluster_body<kSmemH, kRowRing>(
+          OT + slot * PPP, INS + slot * PP, y + (long long)b * P, n_cand[b], Hg + c * PP,
+          K + b * PP, best_j + b, best_k + b, chains + (long long)b * (P + 2), P, wave,
+          ctid, kConsumerWarps, kConsumerBar, step_sync);
       group_sync(kConsumerBar, kConsumerThreads);  // rank 0's chain walk included
       if (ctid < N) mbar_arrive_cluster(&bars[kFreeMbar + s], ctid);
     }

@@ -19,10 +19,12 @@ bounds each on the H100 in ``csrc/segdp_kernels.cuh``):
   nothing after it. The wavefront runs by shape: below ``CLUSTER_MIN_P``
   on one block per problem with H in its shared memory; from there on a
   thread-block cluster of N = 16 or 8 blocks per problem
-  (``cluster_size_for``: 16 where the batch's clusters all fit at once),
-  each block owning every N-th row of H in its shared memory (up to
-  ``cluster_smem_max_p(N)``, in device memory above) and streaming its
-  rows of the outside planes into shared memory a step ahead.
+  (``cluster_size_for``: 16 where the clusters of one launch all fit at
+  once), each block owning every N-th row of H in its shared memory (up
+  to ``cluster_smem_max_p(N)``, in device memory above) and copying the
+  rows of the outside planes it will walk into shared memory ahead of
+  the step (``row_ring_for``: two whole planes a block where they fit,
+  else a ring of two rows for each warp, filled a row ahead of its walk).
 - K2 (``pipelined=True``; replaces ``segdp_pallas.py:_kernel_pipelined``):
   one persistent, warp-specialised launch of as many blocks as the card
   holds at once (two of 12 warps per SM at P <= 64, one above). In each
@@ -41,16 +43,19 @@ bounds each on the H100 in ``csrc/segdp_kernels.cuh``):
   (``k2_cluster_size_for``), each block's producers running phase 1 for
   every N-th middle index and its consumers K1's cluster wavefront on the
   rows those producers wrote, the slots changing hands through mbarriers
-  across the cluster; past what that route's shared memory takes
-  (``k2_cluster_max_p(16)``) the one-block route takes P again.
+  across the cluster. From there on the one-block route runs only when
+  forced (``cluster_size=0``), as the card tests' independent witness.
 
-Both kernels take every P whose scratch fits the card (K1 up to
-``cluster_max_p``, where its ring of outside planes still fits a
-block). The scratch -- the (P, P, P) outside tensor, inside and, above
-the shared-memory cap, H
--- is held for a group of problems (K1) or blocks (K2) at once, as many
-as ``SCRATCH_BUDGET`` allows and at least one (``group_size``); K1
-solves a batch group by group on one set of scratch buffers.
+Both kernels take every P whose scratch fits the card: past the widths
+where two whole outside planes fit a block, the wavefront's ring holds
+rows, whose shared memory grows with P and not with P^2. The scratch --
+the (P, P, P)
+outside tensor, inside and, above the shared-memory cap, H -- is held
+for a group of problems (K1), blocks (K2) or clusters (K2's cluster
+route) at once, as many as ``SCRATCH_BUDGET`` allows and at least one
+(``group_size``); K1 solves a batch group by group on one set of
+scratch buffers. Where the card cannot hold even one, the wrapper raises
+ValueError naming the bytes.
 
 Both kernels return the chains themselves (``with_chains``); on the card
 nothing is launched after them.
@@ -120,7 +125,16 @@ CLUSTER_MIN_P = 96
 CLUSTER_SIZE = 8
 WIDE_CLUSTER_SIZE = 16
 MAX_CLUSTER = 16  # kMaxCluster in the .cuh
-OT_STAGES = 2  # kOtStages: outside planes in each block's ring
+# The warps that run the cluster wavefront in a block: K1's whole block
+# (kWarps), K2's consumer group (kConsumerWarps).
+WAVE_WARPS = 8
+CONSUMER_WARPS = 4
+# The cluster wavefront's rings: OT_STAGES whole outside planes a block
+# (kOtStages triangles), or RING_ROWS rows of P floats for each warp
+# (kRingRows). row_ring_for chooses by shape, solve_batch_cuda's
+# ``row_ring`` forces.
+OT_STAGES = 2
+RING_ROWS = 2
 
 
 def _tri_floats(P: int, N: int) -> int:
@@ -131,34 +145,49 @@ def _tri_floats(P: int, N: int) -> int:
     return rows * (P - 1) - N * rows * (rows - 1) // 2
 
 
-def cluster_smem_bytes(P: int, N: int, smem_h: bool) -> int:
-    """Dynamic shared memory of a block of K1's cluster wavefront
-    (cluster_smem_bytes in the .cuh): H's triangle when it lives there,
-    OT_STAGES triangles of outside planes, ys and the argmax slots."""
-    return 4 * ((1 if smem_h else 0) + OT_STAGES) * _tri_floats(P, N) + 4 * P + 8 * MAX_CLUSTER
+def _wave_bytes(P: int, N: int, smem_h: bool, nwarps: int, row_ring: bool) -> int:
+    """cluster_smem_bytes in the .cuh: H's triangle when it lives there,
+    the ring (``row_ring``: RING_ROWS rows of P floats for each of
+    ``nwarps`` warps; else OT_STAGES triangles), ys and the argmax slots."""
+    tri = _tri_floats(P, N)
+    ring = nwarps * RING_ROWS * P if row_ring else OT_STAGES * tri
+    return 4 * ((tri if smem_h else 0) + ring + P) + 8 * MAX_CLUSTER
+
+
+def cluster_smem_bytes(P: int, N: int, smem_h: bool, row_ring: bool = True) -> int:
+    """Dynamic shared memory of a block of K1's cluster wavefront at
+    width P on N blocks with the ring of rows (``row_ring``) or of planes."""
+    return _wave_bytes(P, N, smem_h, WAVE_WARPS, row_ring)
+
+
+def row_ring_for(P: int, N: int, smem_h: bool, pipelined: bool = False) -> bool:
+    """Whether the cluster wavefront (K1's, or with ``pipelined`` K2's
+    consumers') at width P on N blocks takes each warp's ring of rows:
+    only where two whole outside planes do not fit a block beside the
+    rest of its layout (on one H100 the rows took 1.10-1.15x the planes'
+    launch time where both fit)."""
+    size = k2_cluster_smem_bytes if pipelined else cluster_smem_bytes
+    return size(P, N, smem_h, False) > _MAX_SMEM
 
 
 @functools.cache
-def _widest(N: int, smem_h: bool, pipelined: bool = False) -> int:
-    """The widest P whose cluster_smem_bytes (pipelined:
-    k2_cluster_smem_bytes) fit a block."""
+def _widest(N: int, pipelined: bool = False) -> int:
+    """The widest P whose H's triangle fits a block of K1's cluster
+    wavefront (pipelined: of K2's cluster route) on N blocks beside the
+    ring of rows. Where the planes fit a block only with H in device
+    memory, H in shared memory beside the rows took 0.49-0.76x their
+    launch time on one H100, so H stays in shared memory up to here."""
     size = k2_cluster_smem_bytes if pipelined else cluster_smem_bytes
     P = 1
-    while size(P + 1, N, smem_h) <= _MAX_SMEM:
+    while size(P + 1, N, True) <= _MAX_SMEM:
         P += 1
     return P
 
 
 def cluster_smem_max_p(N: int | None = None) -> int:
     """The widest P whose H stays in the shared memory of an N-block
-    cluster (default ``CLUSTER_SIZE``) beside the ring of outside planes."""
-    return _widest(N or CLUSTER_SIZE, True)
-
-
-def cluster_max_p(N: int | None = None) -> int:
-    """The widest P K1's cluster wavefront takes on N blocks at all: the
-    ring of outside planes alone fits a block (H in device memory)."""
-    return _widest(N or CLUSTER_SIZE, False)
+    cluster (default ``CLUSTER_SIZE``) of K1's wavefront."""
+    return _widest(N or CLUSTER_SIZE)
 
 # The same for K2 (176), whose block holds the phase-1 slots beside H:
 # PairSmem<128> (sizeof in the .cuh), H, ys and 16 B of hand-off state.
@@ -181,24 +210,18 @@ K2_CLUSTER_MIN_P = 96
 K2_WIDE_PROBLEMS_PER_CLUSTER = 3
 
 
-def k2_cluster_smem_bytes(P: int, N: int, smem_h: bool) -> int:
+def k2_cluster_smem_bytes(P: int, N: int, smem_h: bool, row_ring: bool = True) -> int:
     """Dynamic shared memory of a block of K2's cluster route
     (pipelined_cluster_smem_bytes in the .cuh): the producers'
-    PairSmem<128>, the mbarriers and K1's cluster wavefront layout."""
-    return _PAIR_SMEM_WIDE + _MBAR_BYTES + cluster_smem_bytes(P, N, smem_h)
+    PairSmem<128>, the mbarriers and the cluster wavefront's layout for
+    its consumer warps with the ring of rows (``row_ring``) or of planes."""
+    return _PAIR_SMEM_WIDE + _MBAR_BYTES + _wave_bytes(P, N, smem_h, CONSUMER_WARPS, row_ring)
 
 
 def k2_cluster_smem_max_p(N: int | None = None) -> int:
     """The widest P whose H stays in the shared memory of K2's cluster
     route on N blocks (default ``WIDE_CLUSTER_SIZE``)."""
-    return _widest(N or WIDE_CLUSTER_SIZE, True, True)
-
-
-def k2_cluster_max_p(N: int | None = None) -> int:
-    """The widest P K2's cluster route takes on N blocks (default
-    ``WIDE_CLUSTER_SIZE``) at all: its ring of outside planes still fits a
-    block beside the phase-1 slots (H in device memory)."""
-    return _widest(N or WIDE_CLUSTER_SIZE, False, True)
+    return _widest(N or WIDE_CLUSTER_SIZE, True)
 
 # Device memory the kernels' scratch may hold at once (the budget of
 # ops.segdp.suggested_batch_size); read at call time.
@@ -254,7 +277,7 @@ def _lib() -> ctypes.CDLL:
     """The built library with its C signatures declared (pointers and the
     stream as void*, so ctypes never truncates them to 32 bits)."""
     lib = load_library("segdp").lib
-    lib.segdp_solve.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 6 + [
+    lib.segdp_solve.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 7 + [
         ctypes.c_void_p
     ]
     lib.segdp_solve.restype = ctypes.c_int
@@ -262,15 +285,15 @@ def _lib() -> ctypes.CDLL:
         ctypes.c_void_p
     ]
     lib.segdp_solve_pipelined.restype = ctypes.c_int
-    lib.segdp_solve_pipelined_cluster.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 7 + [
+    lib.segdp_solve_pipelined_cluster.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 8 + [
         ctypes.c_void_p
     ]
     lib.segdp_solve_pipelined_cluster.restype = ctypes.c_int
-    lib.segdp_pipelined_cluster_occupancy.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.segdp_pipelined_cluster_occupancy.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
     lib.segdp_pipelined_cluster_occupancy.restype = ctypes.c_int
     lib.segdp_pipelined_occupancy.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.segdp_pipelined_occupancy.restype = ctypes.c_int
-    lib.segdp_cluster_occupancy.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.segdp_cluster_occupancy.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
     lib.segdp_cluster_occupancy.restype = ctypes.c_int
     lib.segdp_cluster_barrier_probe.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
     lib.segdp_cluster_barrier_probe.restype = ctypes.c_int
@@ -314,41 +337,57 @@ def pipelined_occupancy(P: int, smem_max_p: int | None = None) -> dict[str, int]
     return dict(zip(("sms", "blocks_per_sm", "registers", "smem_bytes"), _PIPE_BLOCKS[key]))
 
 
-def cluster_occupancy(P: int, N: int | None = None, smem_max_p: int | None = None
-                      ) -> dict[str, int]:
+def cluster_occupancy(P: int, N: int | None = None, smem_max_p: int | None = None,
+                      row_ring: bool | None = None) -> dict[str, int]:
     """What the runtime reports for K1's cluster wavefront at width P on
     clusters of N blocks (default ``CLUSTER_SIZE``) on the current device,
-    H in shared memory up to the cap: ``max_active_clusters``
+    H in shared memory up to the cap, the ring ``row_ring`` (default
+    ``row_ring_for``): ``max_active_clusters``
     (cudaOccupancyMaxActiveClusters), ``smem_bytes`` per block (static +
     dynamic) and ``registers`` per thread. Queried once per (device, P, N,
-    home of H)."""
-    return _cluster_occupancy(False, P, N or CLUSTER_SIZE, smem_max_p)
+    home of H, ring)."""
+    return _cluster_occupancy(False, P, N or CLUSTER_SIZE, smem_max_p, row_ring)
 
 
-def _cluster_occupancy(pipelined: bool, P: int, N: int, smem_max_p: int | None):
+def _cluster_occupancy(pipelined: bool, P: int, N: int, smem_max_p: int | None,
+                       row_ring: bool | None):
     """cluster_occupancy (K1) or k2_cluster_occupancy (pipelined), queried
-    once per (device, P, N, home of H)."""
+    once per (device, P, N, home of H, ring)."""
     smem_h = P <= _cap(pipelined, smem_max_p, N)
+    row_ring = row_ring_for(P, N, smem_h, pipelined) if row_ring is None else bool(row_ring)
     cache = _K2_CLUSTER_OCC if pipelined else _CLUSTER_OCC
-    key = (torch.cuda.current_device(), P, N, smem_h)
+    key = (torch.cuda.current_device(), P, N, smem_h, row_ring)
     if key not in cache:
         lib = _lib()
         query = lib.segdp_pipelined_cluster_occupancy if pipelined else lib.segdp_cluster_occupancy
         out = (ctypes.c_int * 3)()
-        _raise_on(lib, query(P, N, int(smem_h), ctypes.addressof(out)),
+        _raise_on(lib, query(P, N, int(smem_h), int(row_ring), ctypes.addressof(out)),
                   f"{'K2' if pipelined else 'K1'} cluster occupancy query")
         cache[key] = tuple(out)
     return dict(zip(("max_active_clusters", "smem_bytes", "registers"), cache[key]))
 
 
-def k2_cluster_occupancy(P: int, N: int | None = None, smem_max_p: int | None = None
-                         ) -> dict[str, int]:
+def k2_cluster_occupancy(P: int, N: int | None = None, smem_max_p: int | None = None,
+                         row_ring: bool | None = None) -> dict[str, int]:
     """What the runtime reports for K2's cluster route at width P on
     clusters of N blocks (default ``WIDE_CLUSTER_SIZE``) on the current
     device, H in shared memory up to the cap: ``max_active_clusters``,
     ``smem_bytes`` per block and ``registers`` per thread, as
     ``cluster_occupancy`` reports them for K1."""
-    return _cluster_occupancy(True, P, N or WIDE_CLUSTER_SIZE, smem_max_p)
+    return _cluster_occupancy(True, P, N or WIDE_CLUSTER_SIZE, smem_max_p, row_ring)
+
+
+def _row_ring(P: int, N: int, smem_h: bool, pipelined: bool, row_ring: bool | None) -> bool:
+    """The cluster wavefront's ring: ``row_ring_for`` by shape, or
+    ``row_ring`` as the caller forces it, which must fit the block's
+    shared memory."""
+    if row_ring is None:
+        return row_ring_for(P, N, smem_h, pipelined)
+    size = k2_cluster_smem_bytes if pipelined else cluster_smem_bytes
+    if size(P, N, smem_h, row_ring) > _MAX_SMEM:
+        raise ValueError(f"row_ring={row_ring}: that ring does not fit a block's shared memory "
+                         f"at P={P} on {N} blocks a cluster")
+    return bool(row_ring)
 
 
 def cluster_barrier_probe(B: int, N: int, steps: int) -> None:
@@ -368,11 +407,12 @@ def pipelined_grid(B: int, P: int, smem_max_p: int | None = None) -> int:
     return group_size(min(B, occ["sms"] * occ["blocks_per_sm"]), P, True, smem_max_p)
 
 
-def pipelined_cluster_grid(B: int, P: int, N: int, smem_max_p: int | None = None) -> int:
+def pipelined_cluster_grid(B: int, P: int, N: int, smem_max_p: int | None = None,
+                           row_ring: bool | None = None) -> int:
     """The clusters of K2's cluster route on N blocks for B problems at
     width P on the current device: as many as are resident at once and
     as ``SCRATCH_BUDGET`` gives scratch for, at most B, at least 1."""
-    occ = k2_cluster_occupancy(P, N, smem_max_p)
+    occ = k2_cluster_occupancy(P, N, smem_max_p, row_ring)
     return group_size(min(B, max(1, occ["max_active_clusters"])), P, True, smem_max_p, N=N)
 
 
@@ -421,13 +461,15 @@ def kernel_inputs(C, y, W, lookup, scale):
 
 
 def cluster_size_for(B: int, P: int, smem_max_p: int | None = None) -> int:
-    """The blocks per cluster of K1's wavefront for B problems at width P
-    on the current device: WIDE_CLUSTER_SIZE when the kernel takes P on
-    that many blocks and the runtime can keep B such clusters resident at
-    once (cudaOccupancyMaxActiveClusters), else CLUSTER_SIZE."""
+    """The blocks per cluster of K1's wavefront for a launch of B problems
+    at width P on the current device: WIDE_CLUSTER_SIZE when the runtime
+    can keep B such clusters resident at once
+    (cudaOccupancyMaxActiveClusters) or when a cap is given that only
+    that many blocks hold H at; else CLUSTER_SIZE. Either takes every P."""
     N = WIDE_CLUSTER_SIZE
-    if P <= cluster_max_p(N) and (smem_max_p is None or smem_max_p <= cluster_smem_max_p(N)) \
-            and cluster_occupancy(P, N, smem_max_p)["max_active_clusters"] >= B:
+    if smem_max_p is not None and smem_max_p > cluster_smem_max_p(CLUSTER_SIZE):
+        return N
+    if cluster_occupancy(P, N, smem_max_p)["max_active_clusters"] >= B:
         return N
     return CLUSTER_SIZE
 
@@ -440,13 +482,12 @@ def _k1_route(P: int, smem_max_p: int | None, cluster_size: int | None,
     ``CLUSTER_MIN_P`` on (or where H has to be in device memory) the
     cluster kernel on ``wide_size()`` blocks (solve_batch_cuda passes
     cluster_size_for), below it the one-block kernel; ``cluster_size`` 0
-    takes the one-block kernel, N >= 1 the cluster kernel on N blocks, at
-    any P either takes."""
+    takes the one-block kernel, N >= 1 the cluster kernel on N blocks.
+    The cluster kernel takes every P."""
     if cluster_size is None:
         if P < CLUSTER_MIN_P and P <= _cap(False, smem_max_p):
             return 0, _cap(False, smem_max_p)
         N = wide_size()
-        cap = _cap(False, smem_max_p, N)
     elif cluster_size == 0:
         cap = K1_SMEM_MAX_P if smem_max_p is None else smem_max_p
         if P > min(cap, K1_SMEM_MAX_P):
@@ -455,28 +496,22 @@ def _k1_route(P: int, smem_max_p: int | None, cluster_size: int | None,
         return 0, cap
     elif 1 <= cluster_size <= MAX_CLUSTER:
         N = cluster_size
-        cap = _cap(False, smem_max_p, N)
     else:
         raise ValueError(f"cluster_size={cluster_size}: 0 or 1..{MAX_CLUSTER}")
-    if P > cluster_max_p(N):
-        raise ValueError(f"P={P}: K1's cluster wavefront on {N} blocks takes P up to "
-                         f"{cluster_max_p(N)} (its ring of outside planes must fit a block)")
-    return N, cap
+    return N, _cap(False, smem_max_p, N)
 
 
 def k2_cluster_size_for(B: int, P: int, smem_max_p: int | None = None) -> int:
     """The blocks per cluster of K2's cluster route for B problems at
-    width P on the current device: WIDE_CLUSTER_SIZE where CLUSTER_SIZE
-    blocks cannot take P, or where the route takes P on that many blocks
-    (within the cap, if given) and the batch needs at most
-    K2_WIDE_PROBLEMS_PER_CLUSTER problems per cluster of that size the
-    runtime keeps resident at once; else CLUSTER_SIZE."""
+    width P on the current device: WIDE_CLUSTER_SIZE where the batch needs
+    at most K2_WIDE_PROBLEMS_PER_CLUSTER problems per cluster of that size
+    the runtime keeps resident at once, or where a cap is given that only
+    that many blocks hold H at; else CLUSTER_SIZE. Either takes every P."""
     N = WIDE_CLUSTER_SIZE
-    if P > k2_cluster_max_p(CLUSTER_SIZE):
+    if smem_max_p is not None and smem_max_p > k2_cluster_smem_max_p(CLUSTER_SIZE):
         return N
-    if (smem_max_p is None or smem_max_p <= k2_cluster_smem_max_p(N)) and B <= (
-            K2_WIDE_PROBLEMS_PER_CLUSTER
-            * k2_cluster_occupancy(P, N, smem_max_p)["max_active_clusters"]):
+    if B <= K2_WIDE_PROBLEMS_PER_CLUSTER * k2_cluster_occupancy(
+            P, N, smem_max_p)["max_active_clusters"]:
         return N
     return CLUSTER_SIZE
 
@@ -487,31 +522,50 @@ def _k2_route(P: int, smem_max_p: int | None, cluster_size: int | None,
     cluster route (0: the one-block route) and cap the widest P whose H
     stays in shared memory. By shape unless ``cluster_size`` forces a
     route: from ``K2_CLUSTER_MIN_P`` on the cluster route on
-    ``wide_size()`` blocks (solve_batch_cuda passes k2_cluster_size_for)
-    wherever that route takes P, the one-block route elsewhere;
-    ``cluster_size`` 0 takes the one-block route, N >= 1 the cluster route
-    on N blocks, at any P either takes."""
+    ``wide_size()`` blocks (solve_batch_cuda passes k2_cluster_size_for),
+    the one-block route below; ``cluster_size`` 0 takes the one-block
+    route, N >= 1 the cluster route on N blocks. Both take every P."""
     if cluster_size is None:
         if P < K2_CLUSTER_MIN_P:
             return 0, _cap(True, smem_max_p)
         N = wide_size()
-        if P > k2_cluster_max_p(N):
-            return 0, _cap(True, smem_max_p)
     elif cluster_size == 0:
         return 0, _cap(True, smem_max_p)
     elif 1 <= cluster_size <= MAX_CLUSTER:
         N = cluster_size
-        if P > k2_cluster_max_p(N):
-            raise ValueError(f"P={P}: K2's cluster route on {N} blocks takes P up to "
-                             f"{k2_cluster_max_p(N)} (its ring and phase-1 slots must fit a "
-                             "block)")
     else:
         raise ValueError(f"cluster_size={cluster_size}: 0 or 1..{MAX_CLUSTER}")
     return N, _cap(True, smem_max_p, N)
 
 
+def launch_route(B: int, P: int, pipelined: bool = False, smem_max_p: int | None = None,
+                 cluster_size: int | None = None, row_ring: bool | None = None
+                 ) -> tuple[int, int, bool]:
+    """What solve_batch_cuda launches for B problems at width P: (N, cap,
+    row_ring), N the blocks per cluster (0: one block a problem, K2's one
+    block per SM), cap the widest P whose H stays in shared memory, and
+    row_ring whether the cluster wavefront takes its ring of rows
+    (``row_ring_for``; False off the cluster routes). By shape, the
+    cluster size asked of the runtime for the problems that one launch
+    holds: K1 launches a batch in groups of ``group_size`` (the group that
+    clusters of WIDE_CLUSTER_SIZE would hold), K2 all of it at once.
+    ``cluster_size`` and ``row_ring`` force; a forced value the kernels
+    do not take raises ValueError."""
+    if pipelined:
+        N, cap = _k2_route(P, smem_max_p, cluster_size,
+                           lambda: k2_cluster_size_for(B, P, smem_max_p))
+    else:
+        N, cap = _k1_route(P, smem_max_p, cluster_size, lambda: cluster_size_for(
+            group_size(B, P, smem_max_p=smem_max_p, N=WIDE_CLUSTER_SIZE), P, smem_max_p))
+    if not N:
+        if row_ring is not None:
+            raise ValueError(f"row_ring={row_ring}: only the cluster wavefront has a ring")
+        return N, cap, False
+    return N, cap, _row_ring(P, N, P <= cap, pipelined, row_ring)
+
+
 def solve_batch_cuda(C, y, W, n_cand, read_support, lookup, scale, pipelined=False,
-                     with_chains=False, smem_max_p=None, cluster_size=None):
+                     with_chains=False, smem_max_p=None, cluster_size=None, row_ring=None):
     """Same contract as ``ops.segdp._solve_batch_torch`` and
     ``freddie_tpu``'s ``solve_batch_pallas``: C (B, P, R) int32, y (B, P)
     int32, W (B, R) f32 integer-valued, n_cand (B,) int32, lookup (L+1,)
@@ -523,24 +577,28 @@ def solve_batch_cuda(C, y, W, n_cand, read_support, lookup, scale, pipelined=Fal
     themselves; the CPU route takes ``_walk_chains``. K1's wavefront runs
     by shape (``CLUSTER_MIN_P``; the cluster's size by
     ``cluster_size_for``), and so does K2 (``K2_CLUSTER_MIN_P``;
-    ``k2_cluster_size_for``); ``cluster_size`` forces a route (0: one
-    block per problem, K2's one block per SM; N: clusters of N blocks,
-    which is how the tests reach the cluster kernels at small P). The
-    wavefront keeps H in shared
+    ``k2_cluster_size_for``); ``launch_route`` says which.
+    ``cluster_size`` forces a route (0: one block per problem, K2's one
+    block per SM; N: clusters of N blocks, which is how the tests reach the
+    cluster kernels at small P), ``row_ring`` the cluster wavefront's ring
+    (default ``row_ring_for``: two whole planes a block where they fit,
+    else rows; True forces the rows, which wrap inside a step at small P,
+    False the planes where they fit).
+    The wavefront keeps H in shared
     memory up to ``smem_max_p`` (default: the widest that fits,
-    ``cluster_smem_max_p()`` for K1's clusters, ``K1_SMEM_MAX_P`` for its
+    ``cluster_smem_max_p(N)`` for K1's clusters, ``K1_SMEM_MAX_P`` for its
     one block, ``K2_SMEM_MAX_P`` for K2's one block,
     ``k2_cluster_smem_max_p(N)`` for its clusters; a lower cap, 0
     included, puts H in device memory, K1's on the cluster route) and in
     device memory above. Raises ValueError when one problem's scratch
-    cannot be allocated, or when P is past what a forced cluster route
-    takes (``cluster_max_p``, ``k2_cluster_max_p``); a launch the runtime
-    refuses raises RuntimeError."""
+    (one cluster's, on K2's cluster route) cannot be allocated, or when a
+    forced route, cap or ring is one the kernels do not take; a launch the
+    runtime refuses raises RuntimeError."""
     global LAUNCHES, PIPELINED_LAUNCHES, CLUSTER_LAUNCHES, DEVICE_H_LAUNCHES
     global PIPELINED_DEVICE_H_LAUNCHES, PIPELINED_CLUSTER_LAUNCHES
     if C.device.type == "cpu":
         if cluster_size is not None:  # a forced route is refused here as on the card
-            (_k2_route if pipelined else _k1_route)(C.shape[1], smem_max_p, cluster_size)
+            launch_route(C.shape[0], C.shape[1], pipelined, smem_max_p, cluster_size, row_ring)
         res = _solve_batch_torch(C, y, W, n_cand, read_support, lookup, scale)
         return res + (_walk_chains(*res),) if with_chains else res
     if C.device.type != "cuda":
@@ -556,12 +614,6 @@ def solve_batch_cuda(C, y, W, n_cand, read_support, lookup, scale, pipelined=Fal
         raise ValueError(f"batch of {B} problems: the kernels take 1..65535")
     if not 0 <= int(read_support) < 2**31:
         raise ValueError(f"read_support {read_support} out of int32 range")
-    if pipelined:
-        N, cap = _k2_route(P, smem_max_p, cluster_size,
-                           lambda: k2_cluster_size_for(B, P, smem_max_p))
-    else:
-        N, cap = _k1_route(P, smem_max_p, cluster_size,
-                           lambda: cluster_size_for(B, P, smem_max_p))
     lib = _lib()
 
     Cs, T_hi, T_lo, Wi, w_sum, w_max = kernel_inputs(C, y, W, lookup, scale)
@@ -574,16 +626,18 @@ def solve_batch_cuda(C, y, W, n_cand, read_support, lookup, scale, pipelined=Fal
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev):  # the runtime's answers the route asks for are this card's
+        N, cap, row_ring = launch_route(B, P, pipelined, smem_max_p, cluster_size, row_ring)
         stream = torch.cuda.current_stream(dev).cuda_stream
         if pipelined and N:
-            G, (OT, INS, H) = _scratch(pipelined_cluster_grid(B, P, N, cap), P, True, cap, dev)
+            G, (OT, INS, H) = _scratch(pipelined_cluster_grid(B, P, N, cap, row_ring), P, True,
+                                       cap, dev)
             err = lib.segdp_solve_pipelined_cluster(
                 Cs.data_ptr(), T_hi.data_ptr(), T_lo.data_ptr(), Wi.data_ptr(),
                 w_sum.data_ptr(), w_max.data_ptr(), y.data_ptr(), n_cand.data_ptr(),
                 OT.data_ptr(), INS.data_ptr(), ptr(H), K.data_ptr(), best_j.data_ptr(),
                 best_k.data_ptr(), chains.data_ptr(), B, P, R, int(read_support), G, N, cap,
-                stream,
+                int(row_ring), stream,
             )
         elif pipelined:
             G, (OT, INS, H) = _scratch(pipelined_grid(B, P, cap), P, True, cap, dev)
@@ -609,7 +663,7 @@ def solve_batch_cuda(C, y, W, n_cand, read_support, lookup, scale, pipelined=Fal
                     y[part].data_ptr(), n_cand[part].data_ptr(), OT.data_ptr(),
                     INS.data_ptr(), ptr(H), K[part].data_ptr(), best_j[part].data_ptr(),
                     best_k[part].data_ptr(), chains[part].data_ptr(),
-                    part.stop - b0, P, R, int(read_support), cap, N, stream,
+                    part.stop - b0, P, R, int(read_support), cap, N, int(row_ring), stream,
                 )
                 if err:
                     break

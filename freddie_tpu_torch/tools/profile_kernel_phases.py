@@ -1,8 +1,10 @@
 """Phase profile of the DP kernels on a card.
 
-    python -m freddie_tpu_torch.tools.profile_kernel_phases [--shape B,P,R] [--device cuda:N]
+    python -m freddie_tpu_torch.tools.profile_kernel_phases [--shape B,P,R ...] [--device cuda:N]
+    python -m freddie_tpu_torch.tools.profile_kernel_phases --launches [--shape B,P,R ...]
+        [--kernel k1|k2|both] [--reps 5] [--cluster-size N] [--smem-max-p CAP] [--row-ring 0|1]
 
-At the shape given (default: the kernel benchmark's 2048,64,512), from
+At each shape given (default: the kernel benchmark's 2048,64,512), from
 ``torch.profiler`` and CUDA events:
 
 - K1 by phase: its pair-statistics launch, its wavefront launch (which
@@ -22,6 +24,15 @@ At the shape given (default: the kernel benchmark's 2048,64,512), from
   B = G, 2G, 8G and B problems (G its grid) beside K1 and a step
   model.
 
+With ``--launches``, only the launches, on a batch whose first problem
+fills all P candidates: for K1 and K2 (``--kernel``) the whole call and
+the device time of the launch that holds the wavefront (K1's wavefront,
+K2's one launch), each the median of ``--reps`` (one profile a
+repetition), on the route the wrapper takes by shape or on the one that
+``--cluster-size``, ``--smem-max-p`` and ``--row-ring`` force
+(``solve_batch_cuda``'s ``cluster_size``, ``smem_max_p``, ``row_ring``),
+each line naming the route it timed.
+
 The kernels run only on a card: ``--device cpu`` is refused.
 """
 
@@ -29,6 +40,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import statistics
 import sys
 
 import numpy as np
@@ -50,10 +62,14 @@ def _device_us(evt) -> float:
     return total if total is not None else getattr(evt, "cuda_time_total", 0.0)
 
 
-def batch_args(dev, shape, seed=7):
-    """solve_batch_cuda's arguments for a synthetic batch of ``shape`` on ``dev``."""
+def batch_args(dev, shape, seed=7, full=False):
+    """solve_batch_cuda's arguments for a synthetic batch of ``shape`` on
+    ``dev``; with ``full`` its first problem fills all P candidates."""
     thr = ScaledThresholds(0.9)
-    t = to_device(synthetic_batch(np.random.default_rng(seed), *shape, False), dev)
+    batch = synthetic_batch(np.random.default_rng(seed), *shape, False)
+    if full:
+        batch["n_cand"][0] = shape[1]
+    t = to_device(batch, dev)
     return (t["C"], t["y"], t["W"], t["n_cand"], 3,
             torch.from_numpy(thr.lookup).to(dev), thr.scale)
 
@@ -84,9 +100,9 @@ def k2_grid(B: int, P: int) -> tuple[int, int]:
     """K2's route by shape for B problems of width P on this card: (N,
     G), N its blocks a cluster (0: the one-block route) and G its grid in
     blocks or clusters."""
-    N, cap = segdp_cuda._k2_route(P, None, None, lambda: segdp_cuda.k2_cluster_size_for(B, P))
+    N, cap, row_ring = segdp_cuda.launch_route(B, P, pipelined=True)
     if N:
-        return N, segdp_cuda.pipelined_cluster_grid(B, P, N, cap)
+        return N, segdp_cuda.pipelined_cluster_grid(B, P, N, cap, row_ring)
     return 0, segdp_cuda.pipelined_grid(B, P)
 
 
@@ -164,20 +180,66 @@ def profile_shape(dev, shape, log=print) -> dict:
     return out
 
 
+def launch_times(dev, shape, reps: int = TIMED_REPS, kernels=("k1", "k2"), log=print,
+                 **force) -> dict:
+    """What ``--launches`` prints at ``shape`` (module docstring); ``force``
+    holds solve_batch_cuda's cluster_size, smem_max_p and row_ring."""
+    B, P, R = shape
+    card = card_line()
+    args = batch_args(dev, shape, seed=sum(shape), full=True)
+    out = dict(shape=list(shape), card=card, force=force)
+    launch = {"k1": ("wavefront_kernel", "wavefront_cluster_kernel"),
+              "k2": ("segdp_pipelined_kernel", "segdp_pipelined_cluster_kernel")}
+    for name in kernels:
+        pipelined = name == "k2"
+
+        def call():
+            return segdp_cuda.solve_batch_cuda(*args, pipelined=pipelined, **force)
+
+        N, cap, row_ring = segdp_cuda.launch_route(B, P, pipelined, **force)
+        times = [device_ms_by_kernel([call], reps=1) for _ in range(reps)]
+        device = [sum(t.get(k, 0.0) for k in launch[name]) for t in times]
+        out[name] = dict(call_ms=time_ms(call, reps=reps), launch_ms=statistics.median(device),
+                         blocks_a_cluster=N, smem_h=P <= cap, row_ring=row_ring)
+        route = (f"{N} blocks a cluster, H in {'shared' if P <= cap else 'device'} memory, "
+                 f"ring of {'rows' if row_ring else 'planes'}" if N else "one block")
+        log(f"[launches] {name.upper()} at B,P,R={shape} ({route}): whole call "
+            f"{out[name]['call_ms']:.3f} ms, launch {out[name]['launch_ms']:.3f} ms on the "
+            f"device (medians of {reps}; profiler); on {card}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--shape", default=",".join(map(str, KERNEL_SHAPE)), help="B,P,R")
+    ap.add_argument("--shape", action="append", help="B,P,R (repeatable)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cuda:N")
+    ap.add_argument("--launches", action="store_true", help="only the launches (docstring)")
+    ap.add_argument("--kernel", choices=("k1", "k2", "both"), default="both")
+    ap.add_argument("--reps", type=int, default=TIMED_REPS)
+    ap.add_argument("--cluster-size", type=int)
+    ap.add_argument("--smem-max-p", type=int)
+    ap.add_argument("--row-ring", type=int, choices=(0, 1))
     args = ap.parse_args(argv)
+    force = {k: v for k, v in dict(cluster_size=args.cluster_size, smem_max_p=args.smem_max_p,
+                                   row_ring=None if args.row_ring is None
+                                   else bool(args.row_ring)).items() if v is not None}
+    if force and not args.launches:
+        ap.error("--cluster-size, --smem-max-p and --row-ring go with --launches")
+    shapes = [tuple(int(x) for x in spec.split(","))
+              for spec in args.shape or [",".join(map(str, KERNEL_SHAPE))]]
+    if any(len(shape) != 3 for shape in shapes):
+        ap.error("--shape takes B,P,R")
     dev = resolve_device(args.device)
     if dev.type != "cuda":
         ap.error("the kernels run only on a card: give --device cuda or cuda:N")
-    shape = tuple(int(x) for x in args.shape.split(","))
-    if len(shape) != 3:
-        ap.error("--shape takes B,P,R")
+    log = lambda *a: print(*a, flush=True)  # noqa: E731
+    kernels = ("k1", "k2") if args.kernel == "both" else (args.kernel,)
     with torch.cuda.device(dev):
-        out = profile_shape(dev, shape, lambda *a: print(*a, flush=True))
-    print(json.dumps(out), flush=True)
+        for shape in shapes:
+            out = (launch_times(dev, shape, args.reps, kernels, log, **force)
+                   if args.launches else profile_shape(dev, shape, log))
+            print(json.dumps(out), flush=True)
+            torch.cuda.empty_cache()
     return 0
 
 

@@ -8,7 +8,11 @@
 // arrives without waiting; atomicAdd is a fetch_add and setmaxnreg a
 // no-op; __shfl_xor_sync exchanges through
 // per-warp slots between two warp barriers, and so do the fragments of the
-// tensor-core step (mma_m16n8k32_s8); cp.async copies at once.
+// tensor-core step (mma_m16n8k32_s8); __syncwarp is the warp's barrier.
+// cp.async reads its source at once and lands only when the thread's
+// wait_group covers its group, the latest a GPU may land it, so a read
+// of words whose group the thread has not waited for sees what was there
+// before; a block that exits with a copy still in flight aborts.
 //
 // Thread-block clusters: emu_launch(..., concurrent, cluster = N) runs
 // `concurrent` clusters at once, the N blocks of each (consecutive
@@ -44,6 +48,7 @@
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
+#include <deque>
 #include <map>
 #include <memory>
 #include <mutex>
@@ -108,6 +113,9 @@ T* emu_shared(int n, int id) {
 }
 
 inline void __syncthreads() { emu_block->bar->arrive_and_wait(); }
+inline void __syncwarp(unsigned = 0xffffffffu) {
+  emu_block->warps[threadIdx.x / 32].bar->arrive_and_wait();
+}
 
 // EMU_STALL="id:ms" in the environment makes every thread sleep ms
 // milliseconds before each group_sync on barrier id: a way to run one
@@ -187,10 +195,24 @@ T __shfl_xor_sync(unsigned, T v, int lane_mask) {
   return out;
 }
 
-// cp.async: the copy is done at once, so groups have nothing to wait for.
-inline void cp_async_8(void* smem, const void* gmem) { std::memcpy(smem, gmem, 8); }
-inline void cp_async_4(void* smem, const void* gmem) { std::memcpy(smem, gmem, 4); }
-// EMU_CLUSTER_SKEW=us: at each commit of asynchronous copies (once a step
+// cp.async: the thread's copies since its last commit (emu_cp_open), and
+// its committed groups, oldest first. A copy holds the source's bytes as
+// they were at the call and writes them when a wait lands its group.
+struct EmuCopy {
+  void* dst;
+  int n;
+  unsigned char bytes[8];
+};
+inline thread_local std::vector<EmuCopy> emu_cp_open;
+inline thread_local std::deque<std::vector<EmuCopy>> emu_cp_groups;
+inline void emu_cp(void* smem, const void* gmem, int n) {
+  EmuCopy c{smem, n, {}};
+  std::memcpy(c.bytes, gmem, n);
+  emu_cp_open.push_back(c);
+}
+inline void cp_async_8(void* smem, const void* gmem) { emu_cp(smem, gmem, 8); }
+inline void cp_async_4(void* smem, const void* gmem) { emu_cp(smem, gmem, 4); }
+// EMU_CLUSTER_SKEW=us: at each commit of asynchronous copies (once a row
 // in the cluster wavefront), a thread of cluster rank r sleeps r*us
 // microseconds, so that the ranks drift apart wherever no barrier holds
 // them together. Read at each launch.
@@ -198,16 +220,26 @@ inline int emu_cluster_skew_us = 0;
 inline void cp_async_commit() {
   if (emu_cluster > 1 && emu_cluster_skew_us > 0)
     std::this_thread::sleep_for(std::chrono::microseconds(cluster_rank() * emu_cluster_skew_us));
+  emu_cp_groups.push_back(std::move(emu_cp_open));
+  emu_cp_open.clear();
 }
+// cp.async.wait_group N: lands every committed group but the N newest.
 template <int N>
-void cp_async_wait() {}
+void cp_async_wait() {
+  while (emu_cp_groups.size() > (size_t)N) {
+    for (const EmuCopy& c : emu_cp_groups.front()) std::memcpy(c.dst, c.bytes, c.n);
+    emu_cp_groups.pop_front();
+  }
+}
 
 // mbarriers (see the top of the file), changed and waited on under one
-// mutex whose condition variable every arrival wakes. EMU_CLUSTER_SKEW
-// also delays each remote arrival by rank r's r*us microseconds.
+// mutex, with a condition variable per barrier that its arrivals wake
+// (one shared by all of them would wake every waiting thread of the
+// launch at each arrival). EMU_CLUSTER_SKEW also delays each remote
+// arrival by rank r's r*us microseconds.
 constexpr unsigned long long kEmuMbarTag = 0x6D62ULL << 48;
 inline std::mutex emu_mbar_mu;
-inline std::condition_variable emu_mbar_cv;
+inline std::map<const void*, std::condition_variable> emu_mbar_cvs;  // under emu_mbar_mu
 inline void emu_mbar_check(unsigned long long v, const char* what) {
   if ((v >> 48) != (kEmuMbarTag >> 48)) {
     std::fprintf(stderr, "%s: not an mbarrier (never set up, or its block has exited)\n", what);
@@ -223,8 +255,10 @@ inline void mbar_arrive_cluster(unsigned long long* bar, int rank) {
   if (emu_cluster > 1 && emu_cluster_skew_us > 0)
     std::this_thread::sleep_for(std::chrono::microseconds(cluster_rank() * emu_cluster_skew_us));
   unsigned long long* p = cluster_map(bar, rank);
+  std::condition_variable* cv;
   {
     std::lock_guard<std::mutex> lock(emu_mbar_mu);
+    cv = &emu_mbar_cvs[p];
     const unsigned long long v = *p;
     emu_mbar_check(v, "mbar_arrive_cluster");
     const unsigned long long count = v & 0xFFFF, pending = (v >> 16) & 0xFFFF;
@@ -232,16 +266,17 @@ inline void mbar_arrive_cluster(unsigned long long* bar, int rank) {
     *p = pending == 1 ? kEmuMbarTag | (((phase + 1) & 0xFFFF) << 32) | (count << 16) | count
                       : kEmuMbarTag | (phase << 32) | ((pending - 1) << 16) | count;
   }
-  emu_mbar_cv.notify_all();
+  cv->notify_all();
 }
 inline void mbar_wait(unsigned long long* bar, int parity) {
   std::unique_lock<std::mutex> lock(emu_mbar_mu);
+  std::condition_variable& cv = emu_mbar_cvs[bar];
   const auto deadline = std::chrono::steady_clock::now() + std::chrono::seconds(60);
   for (;;) {
     const unsigned long long v = *bar;
     emu_mbar_check(v, "mbar_wait");
     if ((int)((v >> 32) & 1) != parity) return;
-    if (emu_mbar_cv.wait_until(lock, deadline) == std::cv_status::timeout) {
+    if (cv.wait_until(lock, deadline) == std::cv_status::timeout) {
       std::fprintf(stderr, "mbar_wait: no phase of parity %d completed in 60 s\n", parity);
       std::abort();
     }
@@ -325,6 +360,13 @@ void emu_launch(dim3 grid, int threads, F body, int concurrent = 1, int cluster 
           if (t == 0) std::memset(blk->dyn_smem, 0xAB, sizeof(blk->dyn_smem));
           blk->bar->arrive_and_wait();
           body();
+          for (const auto& g : emu_cp_groups) emu_cp_open.insert(emu_cp_open.end(), g.begin(), g.end());
+          if (!emu_cp_open.empty()) {
+            std::fprintf(stderr, "emu_launch: block %u thread %d exited with %zu copies in flight\n",
+                         lin, t, emu_cp_open.size());
+            std::abort();
+          }
+          emu_cp_groups.clear();
           blk->bar->arrive_and_wait();
           if (t == 0) std::memset(blk->dyn_smem, 0xCD, sizeof(blk->dyn_smem));  // the block exited
         }

@@ -2,18 +2,21 @@
 // read from raw int32 files in the working directory, and writes K,
 // best_j and best_k back (tests/test_torch_segdp_emulated.py): K1's two
 // launches, its wavefront on one block a problem, or with "cN" on
-// clusters of N blocks (wavefront_cluster_kernel, the clusters in turn,
-// each cluster's blocks at once); or with a grid size G, K2's one launch
-// of G blocks, of which `at_once` run concurrently (default 1: in turn);
-// or with "kN G", K2's cluster route (segdp_pipelined_cluster_kernel) on G
-// clusters of N blocks, `at_once` clusters concurrently, each cluster's
-// blocks together.
+// clusters of N blocks whose ring holds two whole outside planes a block,
+// with "cNr" each warp's ring of rows (wavefront_cluster_kernel, the
+// clusters in turn, each cluster's blocks at once); or with a grid size
+// G, K2's one launch of G blocks, of which `at_once` run concurrently
+// (default 1: in turn); or with "kN G" or "kNr G", K2's cluster route
+// (segdp_pipelined_cluster_kernel) on G clusters of N blocks with the
+// same rings, `at_once` clusters concurrently, each cluster's blocks
+// together.
 // As in segdp.cu, the wavefront keeps H in shared memory when P <= cap and
 // in device memory (a scratch vector here: K1's (B, P, P), K2's (G, P,
 // P)) above; a cap of 0 forces the device-memory route (K1: the cluster
 // kernel's).
 //
-//   segdp_emu B P R read_support cap [cN | G [at_once] | kN G [at_once]]
+//   segdp_emu B P R read_support cap [cN[r] | G [at_once] | kN[r] G [at_once]]
+//   segdp_emu smem P N smem_h row_ring   (prints the cluster kernels' shared memory)
 //   in:  Cs.bin Thi.bin Tlo.bin W.bin wsum.bin wmax.bin y.bin n.bin
 //   out: K.bin bj.bin bk.bin chains.bin; K1's OT.bin and INS.bin (its
 //        scratch, of which only the live entries are defined); K2's
@@ -22,6 +25,7 @@
 //        written by the cluster route, which has no queue)
 #include <cstdio>
 #include <cstdlib>
+#include <cstring>
 #include <vector>
 
 #include "emu.h"
@@ -47,6 +51,16 @@ static void store(const char* name, const std::vector<T>& v) {
 }
 
 int main(int argc, char** argv) {
+  if (argc == 6 && std::strcmp(argv[1], "smem") == 0) {
+    // segdp_emu smem P N smem_h row_ring: the dynamic shared memory of a
+    // block of K1's cluster wavefront and of K2's cluster route, as the
+    // launches ask for it (the wrapper counts the same bytes in Python).
+    const int P = std::atoi(argv[2]), N = std::atoi(argv[3]);
+    const bool h = std::atoi(argv[4]) != 0, rows = std::atoi(argv[5]) != 0;
+    std::printf("%d %d\n", segdp::cluster_smem_bytes(P, N, h, segdp::kWarps, rows),
+                segdp::pipelined_cluster_smem_bytes(P, N, h, rows));
+    return 0;
+  }
   if (argc < 6 || argc > 9) return 2;
   const int B = std::atoi(argv[1]), P = std::atoi(argv[2]);
   const int R = std::atoi(argv[3]), rs = std::atoi(argv[4]);
@@ -54,6 +68,7 @@ int main(int argc, char** argv) {
   const bool cluster = argc >= 7 && argv[6][0] == 'c';  // K1 on clusters of N blocks
   const bool k2_cluster = argc >= 7 && argv[6][0] == 'k';  // K2 on G clusters of N blocks
   const int N = cluster || k2_cluster ? std::atoi(argv[6] + 1) : 0;
+  const bool row_ring = (cluster || k2_cluster) && std::strchr(argv[6], 'r') != nullptr;
   const int grid_arg = k2_cluster ? 7 : 6;  // where G is
   const int G = argc > grid_arg && !cluster ? std::atoi(argv[grid_arg]) : 0;  // 0: K1
   const int at_once = argc == grid_arg + 2 ? std::atoi(argv[grid_arg + 1]) : 1;
@@ -92,22 +107,28 @@ int main(int argc, char** argv) {
                                 bk.data(), chains.data(), P);
       });
     } else {
-      if (segdp::cluster_smem_bytes(P, N, smem_h) > (int)sizeof(EmuBlock::dyn_smem)) return 2;
+      if (segdp::cluster_smem_bytes(P, N, smem_h, segdp::kWarps, row_ring) >
+          (int)sizeof(EmuBlock::dyn_smem))
+        return 2;
+      // The instantiation segdp.cu's cluster_config picks.
+      auto run = [&](auto kernel) {
+        kernel(OT.data(), INS.data(), y.data(), n.data(), H.data(), K.data(), bj.data(),
+               bk.data(), chains.data(), P);
+      };
       emu_launch(dim3(N * B), segdp::kThreads, [&] {
-        if (smem_h)
-          segdp::wavefront_cluster_kernel<true>(OT.data(), INS.data(), y.data(), n.data(),
-                                                H.data(), K.data(), bj.data(), bk.data(),
-                                                chains.data(), P);
+        if (row_ring)
+          smem_h ? run(segdp::wavefront_cluster_kernel<true, true>)
+                 : run(segdp::wavefront_cluster_kernel<false, true>);
         else
-          segdp::wavefront_cluster_kernel<false>(OT.data(), INS.data(), y.data(), n.data(),
-                                                 H.data(), K.data(), bj.data(), bk.data(),
-                                                 chains.data(), P);
+          smem_h ? run(segdp::wavefront_cluster_kernel<true, false>)
+                 : run(segdp::wavefront_cluster_kernel<false, false>);
       }, 1, N);
     }
     store("OT.bin", OT);
     store("INS.bin", INS);
   } else if (k2_cluster) {
-    if (segdp::pipelined_cluster_smem_bytes(P, N, smem_h) > (int)sizeof(EmuBlock::dyn_smem))
+    if (segdp::pipelined_cluster_smem_bytes(P, N, smem_h, row_ring) >
+        (int)sizeof(EmuBlock::dyn_smem))
       return 2;
     const size_t slots = 2 * (size_t)G * P * P;
     std::vector<float> OT(slots * P, 12345.f), INS(slots, 12345.f);
@@ -118,8 +139,12 @@ int main(int argc, char** argv) {
              chains.data(), B, P, R, rs);
     };
     emu_launch(dim3(N * G), segdp::kPipeThreads, [&] {
-      smem_h ? run(segdp::segdp_pipelined_cluster_kernel<true>)
-             : run(segdp::segdp_pipelined_cluster_kernel<false>);
+      if (row_ring)
+        smem_h ? run(segdp::segdp_pipelined_cluster_kernel<true, true>)
+               : run(segdp::segdp_pipelined_cluster_kernel<false, true>);
+      else
+        smem_h ? run(segdp::segdp_pipelined_cluster_kernel<true, false>)
+               : run(segdp::segdp_pipelined_cluster_kernel<false, false>);
     }, at_once, N);
   } else {
     const size_t slots = 2 * (size_t)G * P * P;

@@ -271,6 +271,19 @@ def test_profile_segment_tiny_run(tmp_path):
     assert "[prof] profiled run" in proc.stderr and "on cpu" in proc.stderr
 
 
+@pytest.mark.parametrize("args,said", [
+    (("--device", "cpu"), "the kernels run only on a card"),
+    (("--device", "cpu", "--launches", "--row-ring", "1"), "the kernels run only on a card"),
+    (("--row-ring", "1"), "go with --launches"),
+])
+def test_profile_kernel_phases_refuses_before_any_launch(tmp_path, args, said):
+    """The phase profile runs only on a card, in both of its modes, and a
+    forced route belongs to --launches: each is refused with a usage
+    error before a kernel is built, on any machine."""
+    proc = alone(("freddie_tpu_torch.tools.profile_kernel_phases", *args), cwd=tmp_path)
+    assert proc.returncode == 2 and said in proc.stderr and "[phases]" not in proc.stdout
+
+
 def test_warm_kernels_fails_loudly_without_nvcc(tmp_path):
     from freddie_tpu_torch.ops import _build
 

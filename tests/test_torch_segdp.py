@@ -394,24 +394,38 @@ def test_k1_max_p_is_the_widest_that_fits_a_block():
     assert P2 == 176
 
 
+# Past the widest P whose one-problem scratch, a (P, P, P) f32 tensor, an
+# 80 GB card could hold at all (2,700^3 f32 is 78.7 GB).
+PAST_THE_CARD = 3000
+
+
 @pytest.mark.parametrize("N", [1, 2, 4, 8, 16])
 def test_cluster_caps_are_the_widest_that_fit_a_block(N):
-    """cluster_smem_max_p(N) is the widest P whose triangle of H rows and
-    ring of two outside planes (rank 0's, the largest: rows 0, N, 2N, ...
-    with columns k+1..P-1), ys and the argmax slots fit a block;
-    cluster_max_p(N) the widest whose ring alone does. The triangle counts
-    what a direct sum over the rows counts, and at the default cluster size
-    the P = 512 bucket keeps H in shared memory."""
+    """cluster_smem_max_p(N) is the widest P whose triangle of H rows
+    (rank 0's, the largest: rows 0, N, 2N, ... with columns k+1..P-1)
+    fits a block beside the ring of rows (RING_ROWS rows of P floats for
+    each of the 8 warps), ys and the argmax slots. With H in device memory
+    the layout fits at every P whose scratch a card could hold, so K1's
+    cluster wavefront has no width limit of its own; the ring that
+    row_ring_for picks fits wherever its H does, and it is the ring of two
+    whole planes exactly where that fits. The triangle counts what a
+    direct sum over the rows counts, and at the default cluster size the
+    P = 512 bucket keeps H in shared memory."""
     from freddie_tpu_torch.ops import segdp_cuda
 
     for P in (1, 5, 16, 37, 96, 512):
         assert segdp_cuda._tri_floats(P, N) == sum(P - 1 - k for k in range(0, P, N))
     limit = segdp_cuda._MAX_SMEM
-    for cap, smem_h in ((segdp_cuda.cluster_smem_max_p(N), True),
-                        (segdp_cuda.cluster_max_p(N), False)):
-        assert segdp_cuda.cluster_smem_bytes(cap, N, smem_h) <= limit
-        assert segdp_cuda.cluster_smem_bytes(cap + 1, N, smem_h) > limit
-    assert segdp_cuda.cluster_smem_max_p(N) < segdp_cuda.cluster_max_p(N)
+    cap = segdp_cuda.cluster_smem_max_p(N)
+    assert segdp_cuda.cluster_smem_bytes(cap, N, True) <= limit
+    assert segdp_cuda.cluster_smem_bytes(cap + 1, N, True) > limit
+    assert segdp_cuda.cluster_smem_bytes(cap, N, True) == (
+        4 * (segdp_cuda._tri_floats(cap, N) + 8 * segdp_cuda.RING_ROWS * cap + cap) + 8 * 16)
+    assert segdp_cuda.cluster_smem_bytes(PAST_THE_CARD, N, False) <= limit
+    for P in (16, 96, 256, cap, cap + 1, 1312, PAST_THE_CARD):
+        rows = segdp_cuda.row_ring_for(P, N, P <= cap)
+        assert segdp_cuda.cluster_smem_bytes(P, N, P <= cap, rows) <= limit
+        assert rows == (segdp_cuda.cluster_smem_bytes(P, N, P <= cap, False) > limit)
     if N == segdp_cuda.CLUSTER_SIZE:
         assert segdp_cuda.cluster_smem_max_p() >= 512
 
@@ -419,20 +433,23 @@ def test_cluster_caps_are_the_widest_that_fit_a_block(N):
 @pytest.mark.parametrize("B,P,smem_max_p,want", [
     (35, 256, None, 16),  # every cluster of 16 resident at once
     (36, 256, None, 8),  # one more than fits: 8 blocks a cluster
-    (1, 900, None, 16),  # past 774: H in device memory, on 16 blocks still
-    (1, 1000, None, 8),  # past what 16 blocks take: 8 (which refuses it)
-    (1, 600, 700, 16), (1, 600, 800, 8),  # a cap past what 16 blocks hold
+    (1, 900, None, 16),  # H in device memory on 8 blocks, in shared memory on 16
+    (1, 1000, None, 16),  # past what 16 blocks took before the row ring: 16 still
+    (1, 600, 900, 16),  # a cap that only 16 blocks hold H at
+    (36, 600, 800, 8),  # a cap that 8 hold too: by residency
 ])
 def test_cluster_size_follows_the_resident_clusters(monkeypatch, B, P, smem_max_p, want):
-    """cluster_size_for takes 16 blocks a cluster when the kernel takes P
-    on 16 blocks (and the cap, if given, fits them) and the runtime keeps
-    B such clusters resident at once; here the runtime's answer is
-    simulated as 35 clusters."""
+    """cluster_size_for takes 16 blocks a cluster when the runtime keeps B
+    such clusters resident at once, or when the cap given is one that
+    only 16 blocks hold H at, and 8 otherwise; both take every P. Here
+    the runtime's answer is simulated as 35 clusters."""
     from freddie_tpu_torch.ops import segdp_cuda
 
+    assert segdp_cuda.cluster_smem_max_p(8) < 900 <= segdp_cuda.cluster_smem_max_p(16)
     monkeypatch.setattr(segdp_cuda, "cluster_occupancy",
-                        lambda P, N=None, smem_max_p=None: {"max_active_clusters": 35})
+                        lambda *a, **k: {"max_active_clusters": 35})
     assert segdp_cuda.cluster_size_for(B, P, smem_max_p) == want
+    assert segdp_cuda._k1_route(P, smem_max_p, None, lambda: want)[0] == want
 
 
 @pytest.mark.parametrize("P,smem_max_p,cluster_size,want", [
@@ -443,7 +460,7 @@ def test_cluster_size_follows_the_resident_clusters(monkeypatch, B, P, smem_max_
     (32, None, 4, (4, None)),  # the cluster route forced at small P
     (224, None, 0, (0, None)),  # the one-block route forced where it fits
     (256, None, 0, ValueError),  # and refused where it does not
-    ("max+1", None, None, ValueError),  # past the cluster kernel's ring
+    ("max+1", None, None, ("size", None)),  # past what the ring of whole planes took: a route
     (64, None, 17, ValueError),  # past the largest cluster
 ])
 def test_k1_route_by_shape(P, smem_max_p, cluster_size, want):
@@ -452,7 +469,9 @@ def test_k1_route_by_shape(P, smem_max_p, cluster_size, want):
     from freddie_tpu_torch.ops import segdp_cuda
 
     N = segdp_cuda.CLUSTER_SIZE
-    P = {"min": segdp_cuda.CLUSTER_MIN_P, "max+1": segdp_cuda.cluster_max_p() + 1}.get(P, P)
+    # 675: one past the widest P that clusters of 8 took while each block
+    # held two whole outside planes.
+    P = {"min": segdp_cuda.CLUSTER_MIN_P, "max+1": 675}.get(P, P)
     if want is ValueError:
         with pytest.raises(ValueError):
             segdp_cuda._k1_route(P, smem_max_p, cluster_size)
@@ -473,11 +492,11 @@ def test_k1_route_by_shape(P, smem_max_p, cluster_size, want):
     (512, None, None, (16, None)),
     (512, 0, None, (16, 0)),  # H forced to device memory, on the cluster route still
     (64, 0, None, (0, 0)),  # below it, the one-block route with H in device memory
-    ("past16", None, None, (0, "one")),  # past what 16 blocks take: the one-block route
+    ("past16", None, None, (16, None)),  # past what 16 blocks took before: the cluster route
     (32, None, 4, (4, None)),  # the cluster route forced at small P
     (256, None, 8, (8, None)),
     (512, None, 0, (0, "one")),  # the one-block route forced at a wide P
-    (512, None, 8, ValueError),  # past what 8 blocks take
+    (512, None, 8, (8, None)),  # 8 blocks, which the ring of whole planes did not fit
     (64, None, 17, ValueError),  # past the largest cluster
     (64, None, -1, ValueError),
 ])
@@ -490,8 +509,10 @@ def test_k2_route_by_shape(P, smem_max_p, cluster_size, want):
     card: k2_cluster_size_for)."""
     from freddie_tpu_torch.ops import segdp_cuda
 
+    # 691: one past the widest P that K2's clusters of 16 took while each
+    # block held two whole outside planes.
     P = {"below": segdp_cuda.K2_CLUSTER_MIN_P - 1, "min": segdp_cuda.K2_CLUSTER_MIN_P,
-         "past16": segdp_cuda.k2_cluster_max_p(16) + 1}.get(P, P)
+         "past16": 691}.get(P, P)
     assert segdp_cuda.K2_CLUSTER_MIN_P <= segdp_cuda.K2_SMEM_MAX_P + 1
     route = lambda: segdp_cuda._k2_route(P, smem_max_p, cluster_size, lambda: 16)  # noqa: E731
     if want is ValueError:
@@ -509,48 +530,53 @@ def test_k2_route_by_shape(P, smem_max_p, cluster_size, want):
     (24, 256, 16),  # three problems a resident cluster of 16
     (25, 256, 8),  # more: 8 blocks a cluster
     (64, 128, 8),
-    (25, 512, 16),  # past what 8 blocks take: 16 whatever fits at once
+    (25, 512, 8),  # which 8 blocks take now, as every P: by residency
     (1, 96, 16),
 ])
 def test_k2_cluster_size_follows_the_resident_clusters(monkeypatch, B, P, want):
-    """k2_cluster_size_for takes 16 blocks a cluster where 8 cannot take
-    P, or where the batch needs at most K2_WIDE_PROBLEMS_PER_CLUSTER (3)
-    problems per resident cluster of 16; the runtime's answer is
+    """k2_cluster_size_for takes 16 blocks a cluster where the batch needs
+    at most K2_WIDE_PROBLEMS_PER_CLUSTER (3) problems per resident cluster
+    of 16, and 8 otherwise; both take every P. The runtime's answer is
     simulated as 8 clusters."""
     from freddie_tpu_torch.ops import segdp_cuda
 
     assert segdp_cuda.K2_WIDE_PROBLEMS_PER_CLUSTER == 3
     monkeypatch.setattr(segdp_cuda, "k2_cluster_occupancy",
-                        lambda P, N=None, smem_max_p=None: {"max_active_clusters": 8})
+                        lambda *a, **k: {"max_active_clusters": 8})
     assert segdp_cuda.k2_cluster_size_for(B, P) == want
 
 
 @pytest.mark.parametrize("N", [2, 4, 8, 16])
 def test_k2_cluster_caps_are_the_widest_that_fit_a_block(N):
     """A block of K2's cluster route holds the producers' PairSmem<128>
-    (107,520 B), 64 B of mbarriers and K1's cluster wavefront layout
-    (pipelined_cluster_smem_bytes in the .cuh); k2_cluster_smem_max_p(N)
-    is the widest P for which that fits a block with H's triangle,
-    k2_cluster_max_p(N) the widest with the ring alone. On 16 blocks the
-    P = 512 bucket keeps H in shared memory; on 8 it does not fit at all,
-    which is why the route takes 16 there."""
+    (107,520 B), 64 B of mbarriers and the cluster wavefront's layout for
+    its 4 consumer warps (pipelined_cluster_smem_bytes in the .cuh);
+    k2_cluster_smem_max_p(N) is the widest P for which that fits a block
+    with H's triangle beside the ring of rows. With H in device memory it
+    fits at every P whose scratch a card could hold, so the route has no
+    width limit of its own, and the ring row_ring_for picks fits wherever
+    its H does. The P = 512 bucket keeps H in shared memory on 16 blocks
+    and on 8."""
     from freddie_tpu_torch.ops import segdp_cuda
 
     limit = segdp_cuda._MAX_SMEM
     for P in (1, 37, 256, 512):
         for smem_h in (True, False):
-            assert segdp_cuda.k2_cluster_smem_bytes(P, N, smem_h) == (
-                107_520 + 64 + segdp_cuda.cluster_smem_bytes(P, N, smem_h))
-    for cap, smem_h in ((segdp_cuda.k2_cluster_smem_max_p(N), True),
-                        (segdp_cuda.k2_cluster_max_p(N), False)):
-        assert segdp_cuda.k2_cluster_smem_bytes(cap, N, smem_h) <= limit
-        assert segdp_cuda.k2_cluster_smem_bytes(cap + 1, N, smem_h) > limit
-    assert segdp_cuda.k2_cluster_smem_max_p(N) < segdp_cuda.k2_cluster_max_p(N)
-    assert segdp_cuda.k2_cluster_max_p(N) < segdp_cuda.cluster_max_p(N)
-    if N == 16:
-        assert segdp_cuda.k2_cluster_smem_max_p(N) >= 512
-    if N == 8:
-        assert segdp_cuda.k2_cluster_max_p(N) < 512
+            for rows in (False, True):
+                wave = segdp_cuda.cluster_smem_bytes(P, N, smem_h, rows)
+                assert segdp_cuda.k2_cluster_smem_bytes(P, N, smem_h, rows) == (
+                    107_520 + 64 + wave - rows * 4 * 4 * segdp_cuda.RING_ROWS * P)  # 4 warps, not 8
+    cap = segdp_cuda.k2_cluster_smem_max_p(N)
+    assert segdp_cuda.k2_cluster_smem_bytes(cap, N, True) <= limit
+    assert segdp_cuda.k2_cluster_smem_bytes(cap + 1, N, True) > limit
+    assert segdp_cuda.k2_cluster_smem_bytes(PAST_THE_CARD, N, False) <= limit
+    for P in (16, 96, 256, cap, cap + 1, 1312, PAST_THE_CARD):
+        rows = segdp_cuda.row_ring_for(P, N, P <= cap, pipelined=True)
+        assert segdp_cuda.k2_cluster_smem_bytes(P, N, P <= cap, rows) <= limit
+        assert rows == (segdp_cuda.k2_cluster_smem_bytes(P, N, P <= cap, False) > limit)
+    assert cap < segdp_cuda.cluster_smem_max_p(N)
+    if N >= 8:
+        assert cap >= 512
 
 
 def test_k2_cluster_scratch_counts_two_slots_a_cluster(monkeypatch):
@@ -567,12 +593,99 @@ def test_k2_cluster_scratch_counts_two_slots_a_cluster(monkeypatch):
     P = segdp_cuda.k2_cluster_smem_max_p(16) + 1
     assert segdp_cuda.scratch_bytes(P, True, N=16) == 4 * (2 * (P**3 + P**2) + P * P)
     monkeypatch.setattr(segdp_cuda, "k2_cluster_occupancy",
-                        lambda P, N=None, smem_max_p=None: {"max_active_clusters": 8})
+                        lambda *a, **k: {"max_active_clusters": 8})
     assert segdp_cuda.pipelined_cluster_grid(2, 256, 16) == 2
     assert segdp_cuda.pipelined_cluster_grid(64, 256, 16) == 8
     assert segdp_cuda.pipelined_cluster_grid(64, 512, 16) == 3  # 1.07 GB a cluster of 4 GiB
     monkeypatch.setattr(segdp_cuda, "SCRATCH_BUDGET", 1)
     assert segdp_cuda.pipelined_cluster_grid(64, 256, 16) == 1
+
+
+@pytest.mark.parametrize("pipelined", [False, True], ids=["k1", "k2"])
+@pytest.mark.parametrize("B,P", [(8, 704), (36, 704), (1, 960), (1, 1024), (1, 1312)])
+def test_every_width_takes_a_cluster_route(monkeypatch, B, P, pipelined):
+    """Widths past what each block's ring of two whole outside planes held
+    (P > 674 on 8 blocks, 948 on 16; K2 past 690 on 16), which K1 refused
+    and K2 left to its one-block route: by shape, with the cluster size
+    that cluster_size_for and k2_cluster_size_for pick for the batch under
+    a simulated runtime that keeps 7 clusters resident, each kernel takes
+    its cluster route, on 16 or 8 blocks, with a ring that fits a block
+    (two whole planes where they fit, else rows); nothing raises. The JAX
+    package solves these widths too (its XLA twin has no width limit)."""
+    from freddie_tpu_torch.ops import segdp_cuda
+
+    occupancy = lambda *a, **k: {"max_active_clusters": 7}  # noqa: E731
+    monkeypatch.setattr(segdp_cuda, "cluster_occupancy", occupancy)
+    monkeypatch.setattr(segdp_cuda, "k2_cluster_occupancy", occupancy)
+    N, cap, rows = segdp_cuda.launch_route(B, P, pipelined)
+    assert N in (segdp_cuda.CLUSTER_SIZE, segdp_cuda.WIDE_CLUSTER_SIZE)
+    size = segdp_cuda.k2_cluster_smem_bytes if pipelined else segdp_cuda.cluster_smem_bytes
+    assert rows == segdp_cuda.row_ring_for(P, N, P <= cap, pipelined)
+    assert size(P, N, P <= cap, rows) <= segdp_cuda._MAX_SMEM
+    assert cap == (segdp_cuda.k2_cluster_smem_max_p(N) if pipelined
+                   else segdp_cuda.cluster_smem_max_p(N))
+    route = segdp_cuda._k2_route if pipelined else segdp_cuda._k1_route
+    assert route(P, None, None, lambda: N) == (N, cap)
+
+
+def test_k1_cluster_size_is_asked_for_the_problems_one_launch_holds(monkeypatch):
+    """K1 solves a batch in scratch groups, so the cluster size is asked
+    for the problems one launch holds, as many as clusters of 16 would
+    hold (group_size): at P = 704 a group of 3 under the 4 GiB budget,
+    which 7 resident clusters of 16 take, where the batch of 8 would not
+    fit them; with a budget that holds all 8 in one launch, 8 blocks a
+    cluster. K2 holds its whole batch in one launch and is asked for it."""
+    from freddie_tpu_torch.ops import segdp_cuda
+
+    asked = []
+
+    def occupancy(P, N=None, smem_max_p=None, row_ring=None):
+        asked.append(N)
+        return {"max_active_clusters": 7}
+
+    monkeypatch.setattr(segdp_cuda, "cluster_occupancy", occupancy)
+    assert segdp_cuda.group_size(8, 704, N=16) == 3
+    assert segdp_cuda.cluster_size_for(8, 704) == 8  # the whole batch would not fit
+    assert segdp_cuda.launch_route(8, 704)[0] == 16
+    assert segdp_cuda.launch_route(36, 704)[0] == 16
+    monkeypatch.setattr(segdp_cuda, "SCRATCH_BUDGET", 64 << 30)
+    assert segdp_cuda.group_size(8, 704, N=16) == 8
+    assert segdp_cuda.launch_route(8, 704)[0] == 8
+    assert set(asked) == {16}
+    monkeypatch.setattr(segdp_cuda, "k2_cluster_occupancy",
+                        lambda *a, **k: {"max_active_clusters": 2})
+    assert segdp_cuda.launch_route(6, 704, pipelined=True)[0] == 16
+    assert segdp_cuda.launch_route(7, 704, pipelined=True)[0] == 8
+
+
+@pytest.mark.parametrize("P,pipelined,cluster_size,rows,ok", [
+    (96, False, 4, True, True), (96, True, 2, True, True),  # rows where planes fit too
+    (256, True, 16, False, True),  # the ring of two whole planes, where it fits
+    (704, False, 8, False, False),  # and where it does not: two planes of 704 on 8 blocks
+    (1312, True, 8, False, False),  # nor K2's beside its producers' slots at 1312
+    (64, False, 0, True, False),  # the one-block wavefront has no ring
+    (64, True, 0, False, False),  # nor K2's one-block route
+])
+def test_forced_ring_is_checked(P, pipelined, cluster_size, rows, ok):
+    """solve_batch_cuda's ``row_ring`` forces the cluster wavefront's
+    ring: True the ring of rows (how the tests make it wrap inside a step
+    at small P), False two whole planes. A ring that does not fit a block,
+    or one given for a one-block route, is refused before any launch, on
+    the CPU as on the card."""
+    from freddie_tpu_torch.ops import segdp_cuda
+
+    route = lambda: segdp_cuda.launch_route(2, P, pipelined, None, cluster_size, rows)  # noqa
+    if ok:
+        assert route()[2] is rows
+        return
+    with pytest.raises(ValueError):
+        route()
+    C = torch.zeros((1, P, 4), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        segdp_cuda.solve_batch_cuda(C, torch.zeros((1, P), dtype=torch.int32),
+                                    torch.zeros((1, 4)), torch.full((1,), 6, dtype=torch.int32),
+                                    3, torch.zeros(2, dtype=torch.int32), 1, pipelined,
+                                    cluster_size=cluster_size, row_ring=rows)
 
 
 @pytest.mark.parametrize("wide", [False, True])
@@ -589,9 +702,9 @@ def test_k2_cluster_route_on_a_simulated_card_matches_pallas_pipelined(monkeypat
     from freddie_tpu_torch.ops.segdp_cuda import solve_batch_cuda
 
     monkeypatch.setattr(segdp_cuda, "k2_cluster_occupancy",
-                        lambda P, N=None, smem_max_p=None: {"max_active_clusters": 8})
-    assert segdp_cuda._k2_route(256, None, None, lambda: segdp_cuda.k2_cluster_size_for(8, 256)) \
-        == (16, segdp_cuda.k2_cluster_smem_max_p(16))
+                        lambda *a, **k: {"max_active_clusters": 8})
+    assert segdp_cuda.launch_route(8, 256, pipelined=True) == (
+        16, segdp_cuda.k2_cluster_smem_max_p(16), False)  # the ring of planes fits at 256
 
     rng = np.random.default_rng(31 if wide else 37)
     thr = ScaledThresholds(0.9)

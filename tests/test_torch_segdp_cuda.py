@@ -449,8 +449,9 @@ def test_cluster_wavefront_matches_plain(cuda_device, case):
 @pytest.mark.cuda
 def test_refused_cluster_launch_raises(cuda_device, monkeypatch):
     """A cluster launch the runtime refuses raises and falls back to
-    nothing: here the cap is patched past what fits, so the P = 576 launch
-    on 8 blocks asks a block for more shared memory than it has. The
+    nothing: here the cap is patched past what fits, so the P = 1024
+    launch on 8 blocks, H's triangle in shared memory, asks a block for
+    more shared memory than it has. The
     runtime reports at least one resident cluster of 8 and of 16 blocks at
     the wide widths, and cluster_size_for takes 16 exactly while the
     batch's clusters of 16 all fit."""
@@ -462,7 +463,7 @@ def test_refused_cluster_launch_raises(cuda_device, monkeypatch):
         fit = segdp_cuda.cluster_occupancy(P, 16)["max_active_clusters"]
         assert segdp_cuda.cluster_size_for(fit, P) == 16
         assert segdp_cuda.cluster_size_for(fit + 1, P) == segdp_cuda.CLUSTER_SIZE
-    args = _wide_args(cuda_device, 1, 576, 64, 576)
+    args = _wide_args(cuda_device, 1, 1024, 64, 1024)
     monkeypatch.setattr(segdp_cuda, "cluster_smem_max_p", lambda N=None: 10**4)
     before = (segdp_cuda.LAUNCHES, segdp_cuda.CLUSTER_LAUNCHES)
     with pytest.raises(RuntimeError, match="kernel launch failed"):
@@ -541,10 +542,11 @@ def test_k2_cluster_route_matches_plain_and_k1(cuda_device, case):
 @pytest.mark.cuda
 def test_k2_refused_cluster_launch_raises(cuda_device, monkeypatch):
     """A launch of K2's cluster route that the runtime refuses raises and
-    falls back to nothing: here the route's caps are patched past what
-    fits, so P = 512 on 8 blocks asks a block for more shared memory than
-    it has (the runtime refuses it already when the wrapper asks how many
-    such clusters fit). The runtime reports at least one resident cluster of the route
+    falls back to nothing: here the route's cap is patched past what
+    fits, so P = 1024 on 8 blocks, H's triangle in shared memory, asks a
+    block for more shared memory than it has (the runtime refuses it
+    already when the wrapper asks how many such clusters fit). The runtime
+    reports at least one resident cluster of the route
     at the wide widths, and k2_cluster_size_for takes 16 exactly while the
     batch needs at most K2_WIDE_PROBLEMS_PER_CLUSTER problems per resident
     cluster of 16."""
@@ -558,10 +560,46 @@ def test_k2_refused_cluster_launch_raises(cuda_device, monkeypatch):
         assert segdp_cuda.k2_cluster_size_for(most, P) == 16
         assert segdp_cuda.k2_cluster_size_for(most + 1, P) == segdp_cuda.CLUSTER_SIZE
     assert segdp_cuda.k2_cluster_occupancy(512, 16)["max_active_clusters"] >= 1
-    args = _wide_args(cuda_device, 1, 512, 64, 512)
-    monkeypatch.setattr(segdp_cuda, "k2_cluster_max_p", lambda N=None: 10**4)
+    args = _wide_args(cuda_device, 1, 1024, 64, 1024)
     monkeypatch.setattr(segdp_cuda, "k2_cluster_smem_max_p", lambda N=None: 10**4)
     before = (segdp_cuda.PIPELINED_LAUNCHES, segdp_cuda.PIPELINED_CLUSTER_LAUNCHES)
     with pytest.raises(RuntimeError, match="failed"):
         segdp_cuda.solve_batch_cuda(*args, pipelined=True, cluster_size=8)
     assert (segdp_cuda.PIPELINED_LAUNCHES, segdp_cuda.PIPELINED_CLUSTER_LAUNCHES) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pipelined", [False, True], ids=["k1", "k2"])
+@pytest.mark.parametrize("case", [
+    # Past the widest P that a ring of two whole outside planes took (K1
+    # refused these, K2 took its one-block route past 690): by shape.
+    dict(B=8, P=704), dict(B=1, P=960), dict(B=2, P=960), dict(B=1, P=1312),
+    # The ring of rows forced where the planes fit, so that it wraps
+    # inside a step.
+    dict(B=8, P=256, row_ring=True), dict(B=2, P=512, row_ring=True),
+], ids=lambda c: "-".join(f"{k}{v}" for k, v in c.items()))
+def test_every_width_on_the_card_matches_plain(cuda_device, case, pipelined):
+    """K1 and K2 at widths past their old ring's limit, and with the ring
+    of rows forced: each call takes its kernel's
+    cluster route (one CLUSTER_LAUNCHES or PIPELINED_CLUSTER_LAUNCHES) and
+    K, best_j, best_k and the chains equal the plain version's, zero
+    tolerance. P = 1312 is the first bucket whose outside tensor has more
+    than 2^31 floats."""
+    from freddie_tpu_torch.ops import segdp_cuda
+
+    B, P = case["B"], case["P"]
+    args = _wide_args(cuda_device, B, P, 128, B * P + 10)
+    counts = lambda: (segdp_cuda.PIPELINED_CLUSTER_LAUNCHES if pipelined  # noqa: E731
+                      else segdp_cuda.CLUSTER_LAUNCHES)
+    before = counts()
+    got = segdp_cuda.solve_batch_cuda(*args, pipelined=pipelined, with_chains=True,
+                                      row_ring=case.get("row_ring"))
+    torch.cuda.synchronize()
+    assert counts() == before + 1
+    plain = _plain_in_parts(args)
+    assert torch.equal(got[1], plain[1]) and torch.equal(got[2], plain[2])
+    assert torch.equal(got[0][:, : P - 1], plain[0][:, : P - 1])
+    assert torch.equal(got[3], plain[3])
+    assert (plain[1] >= 0).any(), "no problem segmented: the case is vacuous"
+    del got, plain, args
+    torch.cuda.empty_cache()

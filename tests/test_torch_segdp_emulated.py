@@ -41,8 +41,8 @@ import torch
 from freddie_tpu_torch.ops import segdp as tseg
 from freddie_tpu_torch.ops.segdp import ScaledThresholds
 from freddie_tpu_torch.ops.segdp_cuda import (
-    K1_SMEM_MAX_P, K2_SMEM_MAX_P, REP_STAGE, cluster_smem_max_p, k2_cluster_smem_max_p,
-    kernel_inputs)
+    K1_SMEM_MAX_P, K2_SMEM_MAX_P, REP_STAGE, cluster_smem_max_p,
+    k2_cluster_smem_max_p, kernel_inputs, row_ring_for)
 from test_segdp import random_problem
 from test_torch_segdp_cuda import padded_batch, segment_batch
 
@@ -97,7 +97,8 @@ def _full_short_batch(rng, B, P, R):
 
 def _run_and_check(emulator, tmp_path, B, P, R, wide, full, grid=(), rs=3, scale_w=1,
                    short=False, full_short=False, stall=None, at_once=None, cap=None,
-                   cluster=None, segments=False, ties=False, skew=100, k2_cluster=None):
+                   cluster=None, segments=False, ties=False, skew=100, k2_cluster=None,
+                   row_ring=None):
     """Runs the emulated kernels on a random padded batch (K2 when
     ``grid`` holds G, on G clusters of ``k2_cluster`` blocks when that is
     given; K1's wavefront on clusters of ``cluster`` blocks when it is
@@ -109,7 +110,8 @@ def _run_and_check(emulator, tmp_path, B, P, R, wide, full, grid=(), rs=3, scale
     with unit weights when ``ties``, so that many sums are equal and the
     first-index rule decides most maxima; ``skew``: with a cluster, rank r
     sleeps r*skew us a step (EMU_CLUSTER_SKEW), so ranks drift apart where
-    no barrier holds them;
+    no barrier holds them; ``row_ring``: whether the cluster wavefront
+    takes each warp's ring of rows (default ``row_ring_for`` by shape);
     ``short``: few candidates in a wide padding (dead blocks);
     ``scale_w``: weights past two 7-bit limbs; ``full_short``: the batch of
     _full_short_batch; ``stall``: "id:ms", every wait at named barrier id
@@ -142,9 +144,12 @@ def _run_and_check(emulator, tmp_path, B, P, R, wide, full, grid=(), rs=3, scale
     if cap is None:
         cap = (k2_cluster_smem_max_p(k2_cluster) if k2_cluster else K2_SMEM_MAX_P if grid else
                cluster_smem_max_p(cluster) if cluster else K1_SMEM_MAX_P)
+    if (cluster or k2_cluster) and row_ring is None:
+        row_ring = row_ring_for(P, cluster or k2_cluster, P <= cap, bool(k2_cluster))
+    ring = "r" if row_ring else ""
     subprocess.run([str(emulator), str(B), str(P), str(Cs.shape[2]), str(rs), str(cap),
-                    *([f"k{k2_cluster}"] if k2_cluster else []),
-                    *map(str, grid), *([f"c{cluster}"] if cluster else []),
+                    *([f"k{k2_cluster}{ring}"] if k2_cluster else []),
+                    *map(str, grid), *([f"c{cluster}{ring}"] if cluster else []),
                     *([str(at_once)] if at_once else [])],
                    cwd=tmp_path, check=True, capture_output=True, timeout=300,
                    env={**os.environ, **({"EMU_STALL": stall} if stall else {}),
@@ -414,3 +419,58 @@ def test_emulated_k2_cluster_route_random_problems(emulator, tmp_path, case):
     _run_and_check(emulator, tmp_path, case.pop("B"), case.pop("P"), case.pop("R"),
                    case.pop("wide", False), False, grid=(case.pop("G"),),
                    k2_cluster=case.pop("N"), **case)
+
+
+# The ring of rows forced (two rows a warp), so that it wraps inside a
+# step wherever a warp walks more than two rows: every
+# width and cluster size, each with H in the cluster's shared memory and
+# in device memory (cap 0).
+ROW_RING = [dict(P=40, N=2), dict(P=40, N=4, cap=0), dict(P=40, N=16),
+            dict(P=67, N=2, cap=0), dict(P=67, N=4), dict(P=67, N=16, cap=0),
+            dict(P=96, N=2), dict(P=96, N=4, cap=0), dict(P=96, N=16)]
+ROW_RING_IDS = [f"p{c['P']}_n{c['N']}{'_device_h' if 'cap' in c else ''}" for c in ROW_RING]
+
+
+@pytest.mark.parametrize("case", ROW_RING, ids=ROW_RING_IDS)
+def test_emulated_k1_cluster_wavefront_row_ring(emulator, tmp_path, case):
+    """K1's cluster wavefront with the ring of rows forced (by shape it
+    runs only where two whole planes do not fit a block): the stream of a
+    warp's rows runs a row ahead of its walk and across the step barrier,
+    copies land only at the wait
+    that covers their group, and the ranks drift apart
+    (EMU_CLUSTER_SKEW). K, best_j, best_k and the chains equal the plain
+    version's on structured problems that all segment."""
+    case = dict(case)
+    P = case.pop("P")
+    _run_and_check(emulator, tmp_path, 1 if P > 64 else 2, P, 64, False, False, segments=True,
+                   cluster=case.pop("N"), row_ring=True, **case)
+
+
+@pytest.mark.parametrize("case", ROW_RING, ids=ROW_RING_IDS)
+def test_emulated_k2_cluster_route_row_ring(emulator, tmp_path, case):
+    """K2's cluster route with its consumer warps' rings of rows forced, on
+    one cluster that takes the problems in turn (two, one in each scratch
+    slot, at P = 40; one above): as the K1 case above, the consumers'
+    stream of rows also crossing their mbarrier step barrier."""
+    case = dict(case)
+    P = case.pop("P")
+    _run_and_check(emulator, tmp_path, 1 if P > 64 else 2, P, 64, False, False, grid=(1,),
+                   k2_cluster=case.pop("N"), segments=True, row_ring=True, **case)
+
+
+@pytest.mark.parametrize("N", [2, 8, 16])
+def test_emulated_layout_bytes_match_the_wrapper(emulator, N):
+    """The shared memory the cluster launches ask for (cluster_smem_bytes
+    and pipelined_cluster_smem_bytes in the .cuh, compiled here) equals
+    what the wrapper counts for its caps and rings, with H in shared
+    memory and not, for the ring of two planes and of rows."""
+    from freddie_tpu_torch.ops import segdp_cuda
+
+    for P in (7, 96, 257, 704, 1312):
+        for smem_h in (False, True):
+            for rows in (False, True):
+                out = subprocess.run([str(emulator), "smem", str(P), str(N), str(int(smem_h)),
+                                      str(int(rows))], check=True, capture_output=True, text=True)
+                assert list(map(int, out.stdout.split())) == [
+                    segdp_cuda.cluster_smem_bytes(P, N, smem_h, rows),
+                    segdp_cuda.k2_cluster_smem_bytes(P, N, smem_h, rows)]
