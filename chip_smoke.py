@@ -15,7 +15,9 @@ on the card:
    candidate counts far below P (dead blocks) and read_support at both
    ends of its range, holds both kernels' chains against
    ``_walk_chains``, times all three, and reckons each kernel's bound
-   from the run's inputs;
+   from the run's inputs; then ``[batch]``: K1 (in two group launches)
+   and K2 (in one) on a batch past what one K1 launch takes, B = 70,000
+   at P = 16, bit-equal to the plain version run in parts, timed;
 2. drives K2's path (``solve_batch_cuda(pipelined=True)``) once with the
    launch counts at zero, profiles one K1 and one K2 call, checks that
    K2's chains cost no launch after its kernel, prints what the runtime
@@ -115,6 +117,8 @@ BENCH_SHAPE = KERNEL_SHAPE
 # K2 only: a lone block with one problem, and G+3 problems (blocks that
 # own two), at (P, R) = (32, 512); G is K2's grid on this card.
 PIPE_P_R = (32, 512)
+# A batch past what one K1 launch takes (segdp_cuda.K1_MAX_GRID_Y).
+BIG_BATCH_SHAPE = (70_000, 16, 128)
 
 
 def log(*args):
@@ -209,6 +213,7 @@ def kernel_phase(dev, card) -> dict:
             f"{by_bytes:.4f} ms, operations {by_ops:.4f} ms); on {card}")
         del t, args, got, plain, k1, k2, walked
         torch.cuda.empty_cache()
+    big_batch(dev, card, lookup, thr.scale)
     key = BENCH_SHAPE + (False, False, 3)
     k1_ms, k2_ms, p_ms = times[key]
     b_ms, b_by = bounds[key]
@@ -218,6 +223,55 @@ def kernel_phase(dev, card) -> dict:
         "segdp": dict(max_abs_err=max_err["segdp"], ms=k1_ms, **common),
         "segdp_pipelined": dict(max_abs_err=max_err["segdp_pipelined"], ms=k2_ms, **common),
     }
+
+
+def big_batch(dev, card, lookup, scale) -> None:
+    """K1 and K2 at BIG_BATCH_SHAPE, each call read with the counts at
+    zero (K1: one call in two group launches; K2: one launch), K, best_j,
+    best_k and the chains bit-equal to the plain version run in parts of
+    4,096; the times of both calls and of the plain version's parts."""
+    import numpy as np
+    import torch
+
+    from freddie_tpu_torch.ops import segdp_cuda
+    from freddie_tpu_torch.ops.segdp import to_device
+
+    B, P, R = BIG_BATCH_SHAPE
+    t = to_device(synthetic_batch(np.random.default_rng(B), B, P, R, False), dev)
+    args = (t["C"], t["y"], t["W"], t["n_cand"], 3, lookup, scale)
+    t0 = time.perf_counter()
+    plain = plain_in_parts(args, step=4096)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    parts = []
+    for name, pipelined in (("K1", False), ("K2", True)):
+        segdp_cuda.LAUNCHES = segdp_cuda.K1_GROUP_LAUNCHES = segdp_cuda.PIPELINED_LAUNCHES = 0
+        got = segdp_cuda.solve_batch_cuda(*args, pipelined=pipelined, with_chains=True)
+        torch.cuda.synchronize()
+        counts = (segdp_cuda.LAUNCHES, segdp_cuda.K1_GROUP_LAUNCHES,
+                  segdp_cuda.PIPELINED_LAUNCHES)
+        want = (0, 0, 1) if pipelined else (1, 2, 0)
+        if counts != want:
+            raise RuntimeError(f"[batch] {name} at B={B}: (K1 calls, K1 group launches, K2 "
+                               f"launches) {counts}, expected {want}")
+        if not (torch.equal(got[1], plain[1]) and torch.equal(got[2], plain[2])
+                and torch.equal(got[0][:, : P - 1], plain[0][:, : P - 1])
+                and torch.equal(got[3], plain[3])):
+            raise RuntimeError(f"[batch] {name} != plain at B={B} P={P} R={R}")
+        ms = time_ms(lambda: segdp_cuda.solve_batch_cuda(*args, pipelined=pipelined))
+        launches = f"{counts[1]} group launches" if not pipelined else "1 launch"
+        parts.append(f"{name} {ms:.3f} ms ({launches})")
+        del got
+    n_seg = int((plain[1] >= 0).sum())
+    if n_seg == 0:
+        raise RuntimeError(f"[batch] no problem of B={B} segmented: the check is vacuous")
+    b_ms, b_by, _, _ = bound_ms(t, P)
+    log(f"[batch] B={B} P={P} R={R} (past the {segdp_cuda.K1_MAX_GRID_Y} problems of one K1 "
+        f"launch): K1 and K2 bit-equal to plain in parts of 4096, chains included, "
+        f"{n_seg}/{B} segmented; {', '.join(parts)} (medians of {TIMED_REPS}); plain in parts "
+        f"{plain_s * 1e3:.3f} ms (host clock, one run); bound {b_ms:.4f} ms by {b_by}; on {card}")
+    del t, args, plain
+    torch.cuda.empty_cache()
 
 
 def pipelined_path(dev, card) -> int:
@@ -970,16 +1024,17 @@ EVERY_WIDTH = [(8, 704, 128), (1, 960, 128), (2, 960, 128), (1, 1312, 128)]
 EVERY_WIDTH_REPS = 3
 
 
-def plain_in_parts(args):
-    """The plain version's K, best_j, best_k and chains over a batch, one
-    problem at a time (its (1, P, P, P) tensors are 9 GB at P = 1312)."""
+def plain_in_parts(args, step=1):
+    """The plain version's K, best_j, best_k and chains over a batch,
+    ``step`` problems at a time (one by default: its (1, P, P, P) tensors
+    are 9 GB at P = 1312)."""
     import torch
 
     from freddie_tpu_torch.ops.segdp import _solve_batch_torch, _walk_chains
 
     parts = []
-    for b in range(args[0].shape[0]):
-        res = _solve_batch_torch(*[a[b:b + 1] for a in args[:4]], *args[4:])
+    for b in range(0, args[0].shape[0], step):
+        res = _solve_batch_torch(*[a[b:b + step] for a in args[:4]], *args[4:])
         parts.append(res + (_walk_chains(*res),))
     return tuple(torch.cat(x) for x in zip(*parts))
 

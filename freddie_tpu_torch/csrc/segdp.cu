@@ -159,10 +159,12 @@ int occupancy_of(cudaError_t err, const void* kernel, const cudaLaunchConfig_t& 
 
 extern "C" {
 
-// Solves B padded problems with K1 (two launches); R must be a multiple
-// of kMmaStage (reps padded with zero weights); wmax: (B,) each problem's
-// largest weight, chains: (B, P+2) the walked breakpoint chains. The
-// wavefront is wavefront_kernel (one block a problem, H in its shared
+// Solves B padded problems with K1 (two launches), B at most 65535, the
+// gridDim.y of pair_stats_kernel's dim3(P, B) grid (the wrapper launches a
+// larger batch in groups); R must be a multiple of kMmaStage (reps padded
+// with zero weights); wmax: (B,) each problem's largest weight, chains:
+// (B, P+2) the walked breakpoint chains. The wavefront is
+// wavefront_kernel (one block a problem, H in its shared
 // memory) when cluster_n is 0, and otherwise wavefront_cluster_kernel on
 // clusters of cluster_n blocks with each warp's ring of rows when
 // row_ring (else the ring of whole planes), with H

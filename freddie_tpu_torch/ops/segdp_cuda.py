@@ -54,8 +54,10 @@ outside tensor, inside and, above the shared-memory cap, H -- is held
 for a group of problems (K1), blocks (K2) or clusters (K2's cluster
 route) at once, as many as ``SCRATCH_BUDGET`` allows and at least one
 (``group_size``); K1 solves a batch group by group on one set of
-scratch buffers. Where the card cannot hold even one, the wrapper raises
-ValueError naming the bytes.
+scratch buffers, a group never more than ``K1_MAX_GRID_Y`` problems
+(``k1_group_size``), so either kernel takes a batch of any size. Where
+the card cannot hold even one, the wrapper raises ValueError naming the
+bytes.
 
 Both kernels return the chains themselves (``with_chains``); on the card
 nothing is launched after them.
@@ -83,6 +85,9 @@ from .segdp import _solve_batch_torch, _walk_chains, threshold_products
 # the ones on its cluster route; and of both, the ones whose wavefront
 # held H in device memory.
 LAUNCHES = 0
+# K1's group launches (one segdp_solve each), which LAUNCHES counts once
+# per batch.
+K1_GROUP_LAUNCHES = 0
 PIPELINED_LAUNCHES = 0
 CLUSTER_LAUNCHES = 0
 PIPELINED_CLUSTER_LAUNCHES = 0
@@ -254,6 +259,26 @@ def group_size(n: int, P: int, pipelined: bool = False, smem_max_p: int | None =
 def _fit(n: int, unit: int, budget: int | None = None) -> int:
     budget = SCRATCH_BUDGET if budget is None else budget
     return max(1, min(n, budget // unit))
+
+
+# The most problems one K1 launch takes: gridDim.y of pair_stats_kernel's
+# dim3(P, B) grid (segdp.cu:segdp_solve refuses more).
+K1_MAX_GRID_Y = 65535
+
+
+def k1_group_size(B: int, P: int, smem_max_p: int | None = None, N: int | None = None) -> int:
+    """How many of B problems at width P one K1 launch takes: as many as
+    ``group_size`` gives scratch for (H in shared memory up to
+    ``smem_max_p``, the cluster wavefront on N blocks), at most
+    ``K1_MAX_GRID_Y``. Both the group loop of ``solve_batch_cuda`` and
+    ``launch_route``'s question about residency read it."""
+    return min(group_size(B, P, smem_max_p=smem_max_p, N=N), K1_MAX_GRID_Y)
+
+
+def k1_groups(B: int, g: int) -> list[slice]:
+    """K1's launches for B problems in groups of g: consecutive slices
+    that cover each problem once."""
+    return [slice(b0, min(B, b0 + g)) for b0 in range(0, B, g)]
 
 
 def _cap(pipelined: bool, smem_max_p: int | None, N: int | None = None) -> int:
@@ -547,8 +572,8 @@ def launch_route(B: int, P: int, pipelined: bool = False, smem_max_p: int | None
     row_ring whether the cluster wavefront takes its ring of rows
     (``row_ring_for``; False off the cluster routes). By shape, the
     cluster size asked of the runtime for the problems that one launch
-    holds: K1 launches a batch in groups of ``group_size`` (the group that
-    clusters of WIDE_CLUSTER_SIZE would hold), K2 all of it at once.
+    holds: K1 launches a batch in groups of ``k1_group_size`` (the group
+    that clusters of WIDE_CLUSTER_SIZE would hold), K2 all of it at once.
     ``cluster_size`` and ``row_ring`` force; a forced value the kernels
     do not take raises ValueError."""
     if pipelined:
@@ -556,7 +581,7 @@ def launch_route(B: int, P: int, pipelined: bool = False, smem_max_p: int | None
                            lambda: k2_cluster_size_for(B, P, smem_max_p))
     else:
         N, cap = _k1_route(P, smem_max_p, cluster_size, lambda: cluster_size_for(
-            group_size(B, P, smem_max_p=smem_max_p, N=WIDE_CLUSTER_SIZE), P, smem_max_p))
+            k1_group_size(B, P, smem_max_p, WIDE_CLUSTER_SIZE), P, smem_max_p))
     if not N:
         if row_ring is not None:
             raise ValueError(f"row_ring={row_ring}: only the cluster wavefront has a ring")
@@ -572,7 +597,9 @@ def solve_batch_cuda(C, y, W, n_cand, read_support, lookup, scale, pipelined=Fal
     int32. ``pipelined`` runs K2 instead of K1, as it runs
     ``_kernel_pipelined`` there. Both kernels are exact for every weight
     (K1 splits wide weights into limbs itself), so they take no
-    ``wide_weights`` flag. ``with_chains`` appends the (B, P+2)
+    ``wide_weights`` flag. B may be any count from 1: K2 launches once,
+    K1 in groups of at most ``K1_MAX_GRID_Y`` problems (``k1_groups``).
+    ``with_chains`` appends the (B, P+2)
     -1-terminated breakpoint chains to the result: both kernels walk them
     themselves; the CPU route takes ``_walk_chains``. K1's wavefront runs
     by shape (``CLUSTER_MIN_P``; the cluster's size by
@@ -595,7 +622,7 @@ def solve_batch_cuda(C, y, W, n_cand, read_support, lookup, scale, pipelined=Fal
     forced route, cap or ring is one the kernels do not take; a launch the
     runtime refuses raises RuntimeError."""
     global LAUNCHES, PIPELINED_LAUNCHES, CLUSTER_LAUNCHES, DEVICE_H_LAUNCHES
-    global PIPELINED_DEVICE_H_LAUNCHES, PIPELINED_CLUSTER_LAUNCHES
+    global PIPELINED_DEVICE_H_LAUNCHES, PIPELINED_CLUSTER_LAUNCHES, K1_GROUP_LAUNCHES
     if C.device.type == "cpu":
         if cluster_size is not None:  # a forced route is refused here as on the card
             launch_route(C.shape[0], C.shape[1], pipelined, smem_max_p, cluster_size, row_ring)
@@ -610,8 +637,8 @@ def solve_batch_cuda(C, y, W, n_cand, read_support, lookup, scale, pipelined=Fal
     _check("W", W, torch.float32, (B, R), dev)
     _check("n_cand", n_cand, torch.int32, (B,), dev)
     _check("lookup", lookup, torch.int32, lookup.shape, dev)
-    if not 0 < B <= 65535:
-        raise ValueError(f"batch of {B} problems: the kernels take 1..65535")
+    if B < 1:
+        raise ValueError(f"batch of {B} problems: the kernels take at least 1")
     if not 0 <= int(read_support) < 2**31:
         raise ValueError(f"read_support {read_support} out of int32 range")
     lib = _lib()
@@ -652,21 +679,21 @@ def solve_batch_cuda(C, y, W, n_cand, read_support, lookup, scale, pipelined=Fal
         else:
             # Group by group on one set of scratch buffers; the stream
             # orders a group's launches after the previous group's.
-            g, (OT, INS, H) = _scratch(_fit(B, _unit_bytes(P, False, P > cap)), P, False, cap,
-                                       dev)
+            g, (OT, INS, H) = _scratch(k1_group_size(B, P, cap, N), P, False, cap, dev)
             err = 0
-            for b0 in range(0, B, g):
-                part = slice(b0, min(B, b0 + g))
+            for part in k1_groups(B, g):
                 err = lib.segdp_solve(
                     Cs[part].data_ptr(), T_hi[part].data_ptr(), T_lo[part].data_ptr(),
                     Wi[part].data_ptr(), w_sum[part].data_ptr(), w_max[part].data_ptr(),
                     y[part].data_ptr(), n_cand[part].data_ptr(), OT.data_ptr(),
                     INS.data_ptr(), ptr(H), K[part].data_ptr(), best_j[part].data_ptr(),
                     best_k[part].data_ptr(), chains[part].data_ptr(),
-                    part.stop - b0, P, R, int(read_support), cap, N, int(row_ring), stream,
+                    part.stop - part.start, P, R, int(read_support), cap, N, int(row_ring),
+                    stream,
                 )
                 if err:
                     break
+                K1_GROUP_LAUNCHES += 1
     _raise_on(lib, err, f"segdp{'_pipelined' if pipelined else ''} kernel launch")
     if pipelined:
         PIPELINED_LAUNCHES += 1

@@ -357,6 +357,71 @@ def test_scratch_group_size(B, P, budget, pipelined, want):
     assert got == B or (got + 1) * unit > budget
 
 
+@pytest.mark.parametrize("B,P,want", [
+    (70_000, 16, 65535),  # 17,408 B a problem: 4 GiB would hold 246,723
+    (65_536, 8, 65535),
+    (131_072, 24, 65535),  # 57,600 B a problem: 74,565 would fit
+    (2048, 64, 2048),  # the kernel benchmark: one group, as before
+    (8, 512, 7),  # the scratch budget binds, as before
+])
+def test_k1_group_size_is_capped_at_the_grid(B, P, want):
+    """k1_group_size: group_size, at most K1_MAX_GRID_Y (gridDim.y of
+    pair_stats_kernel's dim3(P, B) grid). The cap binds only where one
+    problem's scratch is so small (P <= 24) that the 4 GiB budget would
+    hold more problems than one launch takes."""
+    from freddie_tpu_torch.ops import segdp_cuda
+
+    assert segdp_cuda.K1_MAX_GRID_Y == 65535
+    got = segdp_cuda.k1_group_size(B, P)
+    assert got == want
+    assert got == min(segdp_cuda.group_size(B, P), segdp_cuda.K1_MAX_GRID_Y)
+
+
+@pytest.mark.parametrize("B,P,sizes", [
+    (70_000, 16, [65535, 4465]),
+    (65_535, 16, [65535]),
+    (131_071, 8, [65535, 65535, 1]),
+    (8, 512, [7, 1]),
+])
+def test_k1_groups_cover_every_problem_once(B, P, sizes):
+    """K1's launches for a batch of any size (k1_groups over
+    k1_group_size, as solve_batch_cuda's group loop takes them): each
+    problem in exactly one launch, in order, no launch of more than
+    K1_MAX_GRID_Y problems."""
+    from freddie_tpu_torch.ops import segdp_cuda
+
+    groups = segdp_cuda.k1_groups(B, segdp_cuda.k1_group_size(B, P))
+    assert [g.stop - g.start for g in groups] == sizes
+    assert max(sizes) <= segdp_cuda.K1_MAX_GRID_Y
+    covered = np.concatenate([np.arange(B)[g] for g in groups])
+    np.testing.assert_array_equal(covered, np.arange(B))
+
+
+def test_launch_route_asks_for_one_launchs_problems(monkeypatch):
+    """launch_route asks cluster_size_for about the problems that one K1
+    launch holds, k1_group_size's answer, which the group loop of
+    solve_batch_cuda also reads: 65,535 of 100,000 at P = 16 on the
+    cluster wavefront (H forced into device memory), and all 8 at P = 256."""
+    from freddie_tpu_torch.ops import segdp_cuda
+
+    asked, sized = [], []
+    real = segdp_cuda.k1_group_size
+
+    def k1_group_size(*a, **k):
+        sized.append(real(*a, **k))
+        return sized[-1]
+
+    def cluster_size_for(B, P, smem_max_p=None):
+        asked.append(B)
+        return segdp_cuda.WIDE_CLUSTER_SIZE
+
+    monkeypatch.setattr(segdp_cuda, "k1_group_size", k1_group_size)
+    monkeypatch.setattr(segdp_cuda, "cluster_size_for", cluster_size_for)
+    assert segdp_cuda.launch_route(100_000, 16, smem_max_p=0)[:2] == (16, 0)
+    assert segdp_cuda.launch_route(8, 256)[0] == 16
+    assert asked == sized == [65535, 8]
+
+
 def test_scratch_bytes_count_h_only_above_the_cap():
     """H is scratch in device memory only where it does not fit: above
     what K1's cluster wavefront keeps in its blocks' shared memory

@@ -471,12 +471,13 @@ def test_refused_cluster_launch_raises(cuda_device, monkeypatch):
     assert (segdp_cuda.LAUNCHES, segdp_cuda.CLUSTER_LAUNCHES) == before
 
 
-def _plain_in_parts(args):
+def _plain_in_parts(args, step=None):
     """_solve_batch_torch and _walk_chains over a batch, a few problems at
-    a time so that the plain version's (b, P, P, P) tensors stay small."""
+    a time (``step``, by default as many as 2^28 outside entries) so that
+    the plain version's (b, P, P, P) tensors stay small."""
     C = args[0]
     B, P = C.shape[:2]
-    step = max(1, 2**28 // P**3)
+    step = step or max(1, 2**28 // P**3)
     parts = []
     for b0 in range(0, B, step):
         part = [a[b0:b0 + step] for a in args[:4]] + list(args[4:])
@@ -603,3 +604,60 @@ def test_every_width_on_the_card_matches_plain(cuda_device, case, pipelined):
     assert (plain[1] >= 0).any(), "no problem segmented: the case is vacuous"
     del got, plain, args
     torch.cuda.empty_cache()
+
+
+# Past what one K1 launch takes (segdp_cuda.K1_MAX_GRID_Y = 65,535).
+BIG_B = 70_000
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pipelined", [False, True], ids=["k1", "k2"])
+def test_a_batch_past_one_launch_matches_plain(cuda_device, pipelined):
+    """K1 and K2 at B = 70,000, P = 16, R = 128 (the wrapper refused more
+    than 65,535 problems): K1 in two group launches of 65,535 and 4,465,
+    K2 in one; K, best_j, best_k and the chains equal to the plain version
+    run in parts of 4,096 on the card, zero tolerance."""
+    from freddie_tpu_torch.bench.common import synthetic_batch
+    from freddie_tpu_torch.ops import segdp_cuda
+
+    thr = ScaledThresholds(0.9)
+    batch = synthetic_batch(np.random.default_rng(70_000), BIG_B, 16, 128, False)
+    t = tseg.to_device(batch, cuda_device)
+    args = (t["C"], t["y"], t["W"], t["n_cand"], 3,
+            torch.from_numpy(thr.lookup).to(cuda_device), thr.scale)
+    before = (segdp_cuda.LAUNCHES, segdp_cuda.K1_GROUP_LAUNCHES, segdp_cuda.PIPELINED_LAUNCHES)
+    got = segdp_cuda.solve_batch_cuda(*args, pipelined=pipelined, with_chains=True)
+    torch.cuda.synchronize()
+    after = (segdp_cuda.LAUNCHES, segdp_cuda.K1_GROUP_LAUNCHES, segdp_cuda.PIPELINED_LAUNCHES)
+    assert [a - b for a, b in zip(after, before)] == ([0, 0, 1] if pipelined else [1, 2, 0])
+    plain = _plain_in_parts(args, step=4096)
+    assert torch.equal(got[1], plain[1]) and torch.equal(got[2], plain[2])
+    assert torch.equal(got[0][:, :15], plain[0][:, :15])
+    assert torch.equal(got[3], plain[3])
+    assert (plain[1] >= 0).any(), "no problem segmented: the case is vacuous"
+    del got, plain, args, t
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+def test_dispatch_past_one_launch_matches_parts(cuda_device):
+    """solve_batch_device on 40,000 problems of at most 16 candidates,
+    which the dispatch pads to 65,536 (it raised from 32,769): one K1 call
+    in two group launches, and each problem's chain equal to the same
+    problems solved through the same entry in parts of 4,096. The tests
+    above hold that route against solve_host."""
+    from freddie_tpu_torch.ops import segdp_cuda
+
+    rng = np.random.default_rng(40_000)
+    thr = ScaledThresholds(0.9)
+    problems = [random_problem(rng, int(rng.integers(3, 17)), int(rng.integers(4, 40)))
+                for _ in range(40_000)]
+    before = (segdp_cuda.LAUNCHES, segdp_cuda.K1_GROUP_LAUNCHES)
+    got = tseg.solve_batch_device(problems, thr, device=cuda_device)
+    assert (segdp_cuda.LAUNCHES - before[0], segdp_cuda.K1_GROUP_LAUNCHES - before[1]) == (1, 2)
+    assert segdp_cuda.LAUNCH_SHAPES[-1] == (65_536, 16, 128)
+    want = []
+    for b0 in range(0, len(problems), 4096):
+        want += tseg.solve_batch_device(problems[b0:b0 + 4096], thr, device=cuda_device)
+    assert got == want
+    assert any(want), "no problem segmented: the case is vacuous"
