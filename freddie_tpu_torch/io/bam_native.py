@@ -8,18 +8,10 @@ expansion done in C++. Falls back transparently when no toolchain exists.
 from __future__ import annotations
 
 import ctypes
-import os
-import subprocess
 
 import numpy as np
 
 from .bam import BamRecord
-
-_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-_NATIVE = os.path.join(_REPO_ROOT, "native")
-_SRCS = [os.path.join(_NATIVE, "bamdec.cpp"), os.path.join(_NATIVE, "split_core.cpp")]
-_HDRS = [os.path.join(_NATIVE, "bam_io.h")]
-_LIB = os.path.join(_NATIVE, "libbamdec.so")
 
 _lib = None
 _build_failed = False
@@ -30,19 +22,11 @@ def _load():
     if _lib is not None or _build_failed:
         return _lib
     try:
-        src_mtime = max(os.path.getmtime(p) for p in _SRCS + _HDRS)
-        if not os.path.exists(_LIB) or os.path.getmtime(_LIB) < src_mtime:
-            # Per-pid temp + atomic os.replace: concurrent processes must
-            # never dlopen a half-written .so.
-            tmp = f"{_LIB}.{os.getpid()}.tmp"
-            subprocess.run(
-                ["g++", "-O2", "-shared", "-fPIC", "-pthread", "-o", tmp,
-                 *_SRCS, "-lz"],
-                check=True,
-                capture_output=True,
-            )
-            os.replace(tmp, _LIB)
-        lib = ctypes.CDLL(_LIB)
+        from ..ops._build import load_native
+
+        lib = load_native("bamdec", "libbamdec.so", ["bamdec.cpp", "split_core.cpp"],
+                          ["g++", "-O2", "-shared", "-fPIC", "-pthread"], ctypes.CDLL,
+                          deps=("bam_io.h",), libs=("-lz",))
         lib.bamdec_open.restype = ctypes.c_void_p
         lib.bamdec_open.argtypes = [ctypes.c_char_p, ctypes.c_char_p, ctypes.c_int]
         lib.bamdec_n_refs.argtypes = [ctypes.c_void_p]

@@ -69,28 +69,14 @@ def _load_tsvparse():
     if _tsvparse_mod is not None or _tsvparse_failed:
         return _tsvparse_mod
     try:
-        import importlib.util
-        import os
-        import subprocess
         import sysconfig
 
-        root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-        src = os.path.join(root, "native", "tsvparse.c")
-        lib = os.path.join(root, "native", "tsvparse.so")
-        if not os.path.exists(lib) or os.path.getmtime(lib) < os.path.getmtime(src):
-            inc = sysconfig.get_paths()["include"]
-            # Per-pid temp + atomic os.replace: concurrent processes must
-            # never dlopen a half-written .so.
-            tmp = f"{lib}.{os.getpid()}.tmp"
-            subprocess.run(
-                ["gcc", "-O2", "-shared", "-fPIC", f"-I{inc}", "-o", tmp, src],
-                check=True, capture_output=True,
-            )
-            os.replace(tmp, lib)
-        spec = importlib.util.spec_from_file_location("tsvparse", lib)
-        mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
-        _tsvparse_mod = mod
+        from ..ops._build import import_extension, load_native
+
+        inc = sysconfig.get_paths()["include"]
+        _tsvparse_mod = load_native("tsvparse", "tsvparse.so", ["tsvparse.c"],
+                                    ["gcc", "-O2", "-shared", "-fPIC", f"-I{inc}"],
+                                    import_extension)
     except Exception:
         _tsvparse_failed = True
         _tsvparse_mod = None

@@ -55,28 +55,16 @@ def load_floatsig():
         _failed = True
         return None
     try:
-        import importlib.util
-        import subprocess
         import sysconfig
 
-        root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-        src = os.path.join(root, "native", "floatsig.c")
-        lib = os.path.join(root, "native", "floatsig.so")
-        if not os.path.exists(lib) or os.path.getmtime(lib) < os.path.getmtime(src):
-            inc = sysconfig.get_paths()["include"]
-            # -ffp-contract=off: no FMA contraction may alter the float
-            # sums vs scipy's binaries. Per-pid temp + atomic os.replace.
-            tmp = f"{lib}.{os.getpid()}.tmp"
-            subprocess.run(
-                ["gcc", "-O2", "-ffp-contract=off", "-shared", "-fPIC",
-                 f"-I{inc}", "-o", tmp, src],
-                check=True, capture_output=True,
-            )
-            os.replace(tmp, lib)
-        spec = importlib.util.spec_from_file_location("floatsig", lib)
-        mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
-        _mod = mod
+        from ._build import import_extension, load_native
+
+        inc = sysconfig.get_paths()["include"]
+        # -ffp-contract=off: no FMA contraction may alter the float sums
+        # vs scipy's binaries.
+        _mod = load_native("floatsig", "floatsig.so", ["floatsig.c"],
+                           ["gcc", "-O2", "-ffp-contract=off", "-shared", "-fPIC",
+                            f"-I{inc}"], import_extension)
     except Exception:
         _failed = True
         _mod = None

@@ -26,29 +26,14 @@ def load_segcore():
         _failed = True
         return None
     try:
-        import importlib.util
-        import subprocess
         import sysconfig
 
-        root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-        src = os.path.join(root, "native", "segcore.cpp")
-        lib = os.path.join(root, "native", "segcore.so")
-        if not os.path.exists(lib) or os.path.getmtime(lib) < os.path.getmtime(src):
-            inc = sysconfig.get_paths()["include"]
-            # Compile to a per-pid temp and os.replace (atomic on POSIX):
-            # concurrent processes (multi-host pipelines, the scaling
-            # bench) must never dlopen a half-written .so.
-            tmp = f"{lib}.{os.getpid()}.tmp"
-            subprocess.run(
-                ["g++", "-O2", "-std=c++17", "-shared", "-fPIC", f"-I{inc}",
-                 "-o", tmp, src],
-                check=True, capture_output=True,
-            )
-            os.replace(tmp, lib)
-        spec = importlib.util.spec_from_file_location("segcore", lib)
-        mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
-        _mod = mod
+        from ._build import import_extension, load_native
+
+        inc = sysconfig.get_paths()["include"]
+        _mod = load_native("segcore", "segcore.so", ["segcore.cpp"],
+                           ["g++", "-O2", "-std=c++17", "-shared", "-fPIC", f"-I{inc}"],
+                           import_extension)
     except Exception:
         _failed = True
         _mod = None

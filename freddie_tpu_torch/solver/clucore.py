@@ -29,30 +29,14 @@ def load_clucore():
         _failed = True
         return None
     try:
-        import importlib.util
-        import subprocess
         import sysconfig
 
-        root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-        srcs = [os.path.join(root, "native", s) for s in _SOURCES]
-        lib = os.path.join(root, "native", "clucore.so")
-        newest = max(os.path.getmtime(s) for s in srcs)
-        if not os.path.exists(lib) or os.path.getmtime(lib) < newest:
-            inc = sysconfig.get_paths()["include"]
-            # Build to a per-pid temp and rename: pool workers may race
-            # to build, and dlopen of a half-written .so would poison
-            # the process (os.replace is atomic on POSIX).
-            tmp = f"{lib}.{os.getpid()}.tmp"
-            subprocess.run(
-                ["g++", "-O2", "-std=c++17", "-shared", "-fPIC", f"-I{inc}",
-                 "-o", tmp] + srcs,
-                check=True, capture_output=True,
-            )
-            os.replace(tmp, lib)
-        spec = importlib.util.spec_from_file_location("clucore", lib)
-        mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
-        _mod = mod
+        from ..ops._build import import_extension, load_native
+
+        inc = sysconfig.get_paths()["include"]
+        _mod = load_native("clucore", "clucore.so", _SOURCES,
+                           ["g++", "-O2", "-std=c++17", "-shared", "-fPIC", f"-I{inc}"],
+                           import_extension)
     except Exception:
         _failed = True
         _mod = None

@@ -10,16 +10,10 @@ Python implementation transparently.
 from __future__ import annotations
 
 import ctypes
-import os
-import subprocess
 
 import numpy as np
 
 from .exact import ClusterInstance, SolveResult
-
-_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-_SRC = os.path.join(_REPO_ROOT, "native", "bnb_solver.cpp")
-_LIB = os.path.join(_REPO_ROOT, "native", "libbnb.so")
 
 _lib = None
 _build_failed = False
@@ -30,23 +24,11 @@ def _load():
     if _lib is not None or _build_failed:
         return _lib
     try:
-        srcs = [
-            _SRC,
-            os.path.join(os.path.dirname(_SRC), "segenum.cpp"),
-            os.path.join(os.path.dirname(_SRC), "round_solver.cpp"),
-        ]
-        newest = max(os.path.getmtime(s) for s in srcs)
-        if not os.path.exists(_LIB) or os.path.getmtime(_LIB) < newest:
-            # Per-pid temp + atomic os.replace: concurrent processes must
-            # never dlopen a half-written .so.
-            tmp = f"{_LIB}.{os.getpid()}.tmp"
-            subprocess.run(
-                ["g++", "-O2", "-shared", "-fPIC", "-o", tmp] + srcs,
-                check=True,
-                capture_output=True,
-            )
-            os.replace(tmp, _LIB)
-        lib = ctypes.CDLL(_LIB)
+        from ..ops._build import load_native
+
+        lib = load_native("bnb", "libbnb.so",
+                          ["bnb_solver.cpp", "segenum.cpp", "round_solver.cpp"],
+                          ["g++", "-O2", "-shared", "-fPIC"], ctypes.CDLL)
         lib.solve_bnb.restype = ctypes.c_int
         lib.solve_segenum.restype = ctypes.c_int
         lib.solve_segenum_list.restype = ctypes.c_int

@@ -15,6 +15,7 @@ holds a CUDA context.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 from dataclasses import dataclass
@@ -28,7 +29,7 @@ from ..solver.clucore import cluster_tint_native
 from ..solver.exact import ClusterInstance
 from ..solver.two_phase import solve_two_phase
 from ..utils.fsio import atomic_write
-from ..utils.metrics import SolverLog, summarize_solver_logs
+from ..utils.metrics import SolverLog, count, current, span, summarize_solver_logs
 from ..utils.procenv import cpu_worker_env
 
 # Process-pool gate: segment-TSV bytes above which the spawn pool's
@@ -467,11 +468,24 @@ def cluster_tint(tint: SegTint, cfg: ClusterConfig, device="cuda",
     return isoforms, garbage_rids
 
 
-def _cluster_one(job: tuple[str, str, str, ClusterConfig, str]) -> int:
+def _cluster_one(job: tuple[str, str, str, ClusterConfig, str], parent=None) -> int:
+    """One tint, in whichever thread runs it: a ``cluster.tint`` span
+    whose parent is ``parent`` (the stage's span, handed over to a pool
+    thread) or this thread's innermost open span."""
     in_path, out_path, contig, cfg, device = job
     # Idempotent per-tint resume: an existing file is a completed shard.
     if os.path.exists(out_path):
         return 1
+    with span("cluster.tint", parent=parent) as rec:
+        route = _cluster_routed(in_path, out_path, contig, cfg, device)
+        count("route." + route)
+        if rec is not None:
+            rec["attrs"]["route"] = route
+    return 1
+
+
+def _cluster_routed(in_path, out_path, contig, cfg, device) -> str:
+    """Clusters one tint; returns its route, "native" or "fallback"."""
     if cfg.logs_dir is not None:
         # Solver logs per contig (tint ids repeat across contigs).
         cfg = dataclasses.replace(cfg, logs_dir=os.path.join(cfg.logs_dir, contig))
@@ -487,12 +501,12 @@ def _cluster_one(job: tuple[str, str, str, ClusterConfig, str]) -> int:
         if out is not None:
             with atomic_write(out_path, "wb") as f:
                 f.write(out)
-            return 1
+            return "native"
     tint = parse_segment_tsv(in_path)
     isoforms, garbage = cluster_tint(tint, cfg, device)
     with atomic_write(out_path) as f:
         f.write(format_cluster_tsv(tint, isoforms, garbage))
-    return 1
+    return "fallback"
 
 
 def run_cluster(segment_dir: str, outdir: str, cfg: ClusterConfig | None = None,
@@ -564,7 +578,7 @@ def run_cluster(segment_dir: str, outdir: str, cfg: ClusterConfig | None = None,
             from concurrent.futures import ThreadPoolExecutor
 
             with ThreadPoolExecutor(max_workers=cfg.threads) as ex:
-                n = sum(ex.map(_cluster_one, jobs))
+                n = sum(ex.map(functools.partial(_cluster_one, parent=current()), jobs))
         else:
             n = sum(_cluster_one(j) for j in jobs)
     if cfg.logs_dir is not None:

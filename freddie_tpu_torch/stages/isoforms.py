@@ -23,6 +23,7 @@ from itertools import groupby
 
 from ..config import IsoformsConfig
 from ..io.tsv import parse_cluster_tsv, parse_split_alignment_boundaries
+from ..utils.metrics import count
 
 
 def consensus(isoforms: dict, segments: dict, reads: dict) -> None:
@@ -145,7 +146,9 @@ def tint_isoforms(
     except Exception:
         recs = None
     if recs is not None:
+        count("route.native")
         return recs
+    count("route.fallback")
     segments, reads, isoforms = parse_cluster_tsv(cluster_tsv)
     consensus(isoforms, segments, reads)
     parse_split_alignment_boundaries(split_tsv, reads)

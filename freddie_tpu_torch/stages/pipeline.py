@@ -13,7 +13,7 @@ import shutil
 
 from ..config import PipelineConfig
 from ..utils.fsio import is_complete, mark_complete, protect_outputs, set_writable
-from ..utils.metrics import StageMetrics
+from ..utils.metrics import StageMetrics, profile_trace, span
 from .cluster import run_cluster
 from .isoforms import run_isoforms
 from .segment import run_segment
@@ -66,36 +66,40 @@ def run_pipeline(
                 if resume:
                     log(f"[pipeline] {name}: incomplete output, re-running")
                 _remove(out_path)
-        metrics = StageMetrics(name)
-        for attempt in range(cfg.retries + 1):
-            try:
-                result = fn()
-                break
-            except Exception:
-                if attempt == cfg.retries:
-                    raise
-                log(f"[pipeline] {name}: attempt {attempt + 1} failed; retrying")
-                if not incremental and os.path.exists(out_path):
-                    _remove(out_path)
-        mark_complete(out_path)
-        if protect:
-            protect_outputs(out_path)
-        if isinstance(result, dict):
-            metrics.add("tints", sum(result.values()))
-        elif isinstance(result, int):
-            metrics.add("tints", result)
-        stats[name] = dict(**metrics.finish(), result=result)
+        with span("stage." + name):
+            metrics = StageMetrics(name)
+            for attempt in range(cfg.retries + 1):
+                try:
+                    result = fn()
+                    break
+                except Exception:
+                    if attempt == cfg.retries:
+                        raise
+                    log(f"[pipeline] {name}: attempt {attempt + 1} failed; retrying")
+                    if not incremental and os.path.exists(out_path):
+                        _remove(out_path)
+            mark_complete(out_path)
+            if protect:
+                protect_outputs(out_path)
+            if isinstance(result, dict):
+                metrics.add("tints", sum(result.values()))
+            elif isinstance(result, int):
+                metrics.add("tints", result)
+            stats[name] = dict(**metrics.finish(), result=result)
         log(f"[pipeline] {name}: done in {stats[name]['seconds']:.2f}s ({result})")
         return result
 
-    stage("split", split_dir, lambda: run_split(bam, reads, split_dir, cfg.split))
-    stage("segment", segment_dir,
-          lambda: run_segment(split_dir, segment_dir, cfg.segment, device=device),
-          incremental=True)
-    stage("cluster", cluster_dir,
-          lambda: run_cluster(segment_dir, cluster_dir, cfg.cluster, device=device),
-          incremental=True)
-    stage("isoforms", gtf_path,
-          lambda: run_isoforms(split_dir, cluster_dir, gtf_path, cfg.isoforms))
+    # An operator's trace (FREDDIE_TRACE_DIR) holds every stage and its
+    # spans; the spans record under any profiler that records.
+    with profile_trace(os.environ.get("FREDDIE_TRACE_DIR")), span("pipeline"):
+        stage("split", split_dir, lambda: run_split(bam, reads, split_dir, cfg.split))
+        stage("segment", segment_dir,
+              lambda: run_segment(split_dir, segment_dir, cfg.segment, device=device),
+              incremental=True)
+        stage("cluster", cluster_dir,
+              lambda: run_cluster(segment_dir, cluster_dir, cfg.cluster, device=device),
+              incremental=True)
+        stage("isoforms", gtf_path,
+              lambda: run_isoforms(split_dir, cluster_dir, gtf_path, cfg.isoforms))
     stats["gtf"] = gtf_path
     return stats

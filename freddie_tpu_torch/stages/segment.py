@@ -47,7 +47,7 @@ from ..ops.segdp import (
 )
 from ..ops.thresholds import ScaledThresholds
 from ..utils.fsio import atomic_write
-from ..utils.metrics import profile_trace
+from ..utils.metrics import count, span
 
 # The routing gates below carry the JAX package's values, so both stages
 # bucket, chunk, gate and window a corpus identically. They were tuned
@@ -531,9 +531,12 @@ def run_segment(split_dir: str, outdir: str, cfg: SegmentConfig | None = None,
         _contig, _tint_id, split_tsv, reads_tsv = job
         if eng is not None:
             try:
-                return prepare_tint_native(split_tsv, reads_tsv, cfg, thr, eng)
+                got = prepare_tint_native(split_tsv, reads_tsv, cfg, thr, eng)
+                count("route.native")
+                return got
             except Exception:
                 pass  # the Python oracle path handles what the engine rejects
+        count("route.fallback")
         tint = parse_split_tsv(split_tsv)
         load_read_sequences(tint, reads_tsv)
         return prepare_tint(tint, cfg, thr)
@@ -584,10 +587,12 @@ def run_segment(split_dir: str, outdir: str, cfg: SegmentConfig | None = None,
         if isinstance(work, NativeTintWork):
             try:
                 out = finalize_tint_native(work, sols, cfg, thr, eng)
+                count("route.native")
             except Exception:
                 # C-side invariant trip: redo this tint on the Python
                 # oracle path (phase A is deterministic, so the solutions
                 # line up 1:1).
+                count("route.fallback")
                 tint = parse_split_tsv(split_tsv)
                 load_read_sequences(tint, reads_tsv)
                 pwork, _probs = prepare_tint(tint, cfg, thr)
@@ -596,6 +601,7 @@ def run_segment(split_dir: str, outdir: str, cfg: SegmentConfig | None = None,
                 f.write(out)
             works[t] = None  # free the tint (and its C-side capsule) eagerly
             return None
+        count("route.fallback")
         final_positions, segs = genotype_tint(work, sols, cfg, thr)
         if batch_polya:
             return final_positions, segs
@@ -613,15 +619,26 @@ def run_segment(split_dir: str, outdir: str, cfg: SegmentConfig | None = None,
             t = len(finals)
             if not (allow_python or isinstance(works[t], NativeTintWork)):
                 break
-            finals.append(finish_tint(t))
+            with span("segment.finalize"):
+                finals.append(finish_tint(t))
+
+    def solved(gid, sol, route):
+        """Problem gid's answer; a tint's DP route counts once, as its last
+        problem is answered."""
+        solutions[gid] = sol
+        unsolved[tint_of[gid]] -= 1
+        if unsolved[tint_of[gid]] == 0:
+            count(route)
 
     def take(entry):
         chunk, handles, wk, res, fut = entry
-        if fut is not None:
-            handles = fut.result()
-        for gid, sol in zip(chunk, collect_batch_device(handles, wk, res)):
-            solutions[gid] = sol
-            unsolved[tint_of[gid]] -= 1
+        with span("segment.readback_wait"):
+            if fut is not None:
+                handles = fut.result()
+            # No handle: dispatch_batch_device solved the chunk on the host.
+            route = "route.native" if handles is not None else "route.fallback"
+            for gid, sol in zip(chunk, collect_batch_device(handles, wk, res)):
+                solved(gid, sol, route)
 
     n_collected = 0  # prefix of `pending` already read back inline
 
@@ -638,11 +655,12 @@ def run_segment(split_dir: str, outdir: str, cfg: SegmentConfig | None = None,
             # A bucket's final partial chunk pads up to its full chunk
             # shape (padding rows replicate problem 0, outputs unused).
             pad_b = bs if (key in full_chunks and len(chunk) < bs) else 0
-            handles, wk, res = dispatch_batch_device(
-                [all_problems[i] for i in chunk], thr, pad_p_to=P,
-                pad_r_to=R, pad_b_to=pad_b,
-                dev_cov=len(jobs) >= DEVICE_COVERAGE_MIN_TINTS, device=device,
-            )
+            with span("segment.dispatch", B=len(chunk), P=P, R=R):
+                handles, wk, res = dispatch_batch_device(
+                    [all_problems[i] for i in chunk], thr, pad_p_to=P,
+                    pad_r_to=R, pad_b_to=pad_b,
+                    dev_cov=len(jobs) >= DEVICE_COVERAGE_MIN_TINTS, device=device,
+                )
             for i in chunk:  # dispatched exactly once: free the C/iv copies
                 all_problems[i] = None
             fut = None
@@ -666,71 +684,71 @@ def run_segment(split_dir: str, outdir: str, cfg: SegmentConfig | None = None,
         stream_window = AUTO_WINDOW
 
     try:
-        with profile_trace(os.environ.get("FREDDIE_TRACE_DIR")):
-            for job in jobs:
+        for job in jobs:
+            with span("segment.prepare"):
                 work, problems = prepare_one(job)
-                off = len(all_problems)
-                offsets.append(off)
-                works.append(work)
-                all_problems.extend(problems)
-                solutions.extend([None] * len(problems))
-                tint_of.extend([len(works) - 1] * len(problems))
-                n_unsolved = 0
-                for gid in range(off, off + len(problems)):
-                    p = all_problems[gid]
-                    if len(p.y) <= 2:
-                        solutions[gid] = []
-                        continue
-                    n_unsolved += 1
-                    total_work += len(p.y) ** 3 * p.C.shape[1]
-                    buckets.setdefault(bucket_shape(len(p.y), p.C.shape[1]), []).append(gid)
-                unsolved.append(n_unsolved)
-                if not device_on and cfg.use_device and total_work >= DEVICE_MIN_WORK:
-                    device_on = True
-                if device_on:
-                    force = bool(stream_window and len(works) % stream_window == 0)
-                    for key in list(buckets):
-                        dispatch_chunks(key, force=force)
-                drain_ready(False)
-
-            # Phase A totals known: fix the batched-polyA route as the JAX
-            # stage does (the gate is read here, at call time). The C
-            # Kadane scorer, when
-            # built, beats the batch even on a card; a CPU device keeps
-            # the host scorer. FREDDIE_POLYA_DEVICE=1 forces the batch.
-            total_reads = sum(len(w.tint.reads) for w in works if isinstance(w, TintWork))
-            batch_polya = (cfg.use_device
-                           and total_reads >= POLYA_DEVICE_MIN_READS)
-            if batch_polya and not os.environ.get("FREDDIE_POLYA_DEVICE"):
-                ctok = _load_ctok()
-                batch_polya = not (ctok is not None and hasattr(ctok, "best_run")) and (
-                    dev.type == "cuda"
-                )
-
+            off = len(all_problems)
+            offsets.append(off)
+            works.append(work)
+            all_problems.extend(problems)
+            solutions.extend([None] * len(problems))
+            tint_of.extend([len(works) - 1] * len(problems))
+            n_unsolved = 0
+            for gid in range(off, off + len(problems)):
+                p = all_problems[gid]
+                if len(p.y) <= 2:
+                    solutions[gid] = []
+                    continue
+                n_unsolved += 1
+                total_work += len(p.y) ** 3 * p.C.shape[1]
+                buckets.setdefault(bucket_shape(len(p.y), p.C.shape[1]), []).append(gid)
+            unsolved.append(n_unsolved)
+            if not device_on and cfg.use_device and total_work >= DEVICE_MIN_WORK:
+                device_on = True
             if device_on:
-                for key in sorted(buckets):
-                    dispatch_chunks(key, force=True, allow_python=True)
-            else:
-                # Tiny total workload (or use_device=False): the host
-                # oracle; same results either way.
-                for gid, sol in enumerate(solutions):
-                    if sol is None:
-                        solutions[gid] = solve_host(all_problems[gid], thr)
-                        unsolved[tint_of[gid]] -= 1
+                force = bool(stream_window and len(works) % stream_window == 0)
+                for key in list(buckets):
+                    dispatch_chunks(key, force=force)
+            drain_ready(False)
 
+        # Phase A totals known: fix the batched-polyA route as the JAX
+        # stage does (the gate is read here, at call time). The C
+        # Kadane scorer, when
+        # built, beats the batch even on a card; a CPU device keeps
+        # the host scorer. FREDDIE_POLYA_DEVICE=1 forces the batch.
+        total_reads = sum(len(w.tint.reads) for w in works if isinstance(w, TintWork))
+        batch_polya = (cfg.use_device
+                       and total_reads >= POLYA_DEVICE_MIN_READS)
+        if batch_polya and not os.environ.get("FREDDIE_POLYA_DEVICE"):
+            ctok = _load_ctok()
+            batch_polya = not (ctok is not None and hasattr(ctok, "best_run")) and (
+                dev.type == "cuda"
+            )
+
+        if device_on:
+            for key in sorted(buckets):
+                dispatch_chunks(key, force=True, allow_python=True)
+        else:
+            # Tiny total workload (or use_device=False): the host
+            # oracle; same results either way.
+            for gid, sol in enumerate(solutions):
+                if sol is None:
+                    solved(gid, solve_host(all_problems[gid], thr), "route.fallback")
+
+        drain_ready(True)
+        for entry in pending:
+            if entry is None:
+                continue  # read back inline under MAX_INFLIGHT_CHUNKS
+            take(entry)
             drain_ready(True)
-            for entry in pending:
-                if entry is None:
-                    continue  # read back inline under MAX_INFLIGHT_CHUNKS
-                take(entry)
-                drain_ready(True)
-            if len(finals) != len(works):
-                raise RuntimeError(
-                    f"segment: {len(works) - len(finals)} tints left unsolved"
-                )
+        if len(finals) != len(works):
+            raise RuntimeError(
+                f"segment: {len(works) - len(finals)} tints left unsolved"
+            )
 
-            # Phase C2: every deferred read's polyA scans across ALL tints
-            # in one batched pass on the device; C3 writes those tints.
+        # Phase C2: every deferred read's polyA scans across ALL tints
+        # in one batched pass on the device; C3 writes those tints.
+        with span("segment.polya_batch"):
             held = [t for t, fin in enumerate(finals) if fin is not None]
             if held:
                 reads = [read for t in held for read in works[t].tint.reads]

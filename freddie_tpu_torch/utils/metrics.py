@@ -1,4 +1,5 @@
-"""Observability: stage metrics, structured per-locus logs, profiling.
+"""Observability: stage metrics, spans and counters, structured per-locus
+logs, profiling.
 
 The reference's observability is stdout prints plus optional Gurobi logs
 (.glog/.lp/.sol + timeout.log, py/freddie_cluster.py:577-600,710-749).
@@ -6,22 +7,39 @@ Equivalents here:
 
 - StageMetrics: wall-clock + item counters per stage, JSON-serializable
   (the 'reads/s' numbers the BASELINE targets are computed from these);
+- span() / count(): the program's own spans and counters, recorded only
+  while a torch profiler records in the process (``recorded()``); each
+  span also lands in the profiler's trace as ``freddie.<name>``, and its
+  stamps are on the profiler's clock (Unix-epoch ns);
 - SolverLog: per-instance status table (tint, partition, round, reads,
   status, objective, nodes, seconds) -- the timeout.log equivalent -- plus
   optional instance dumps (.json, the .lp equivalent) for replay;
-- profile_trace(): context manager around torch.profiler for device traces.
+- profile_trace(): context manager around torch.profiler, written as a
+  Chrome trace; ``run_pipeline`` opens it around its four stages when
+  FREDDIE_TRACE_DIR is set, so the trace holds every stage's spans.
+
+Spans (all under ``freddie.``): ``pipeline`` (one ``run_pipeline`` call),
+``stage.<split|segment|cluster|isoforms>`` (the region StageMetrics
+times), ``segment.prepare`` and ``segment.finalize`` (a tint's phase A and
+C1), ``segment.dispatch`` and ``segment.readback_wait`` (a DP chunk's
+launch and its answers' wait), ``segment.polya_batch`` (phases C2/C3),
+``cluster.tint`` (one tint, attr ``route``) and ``build.<engine>`` (a
+native engine's compile or load). Counters: ``route.native`` and
+``route.fallback``, one per tint per stage with a native twin.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import os
+import sys
+import threading
 import time
 from dataclasses import dataclass, field
 
 import numpy as np
-import torch
 
 
 @dataclass
@@ -40,6 +58,108 @@ class StageMetrics:
             if key in self.counters and wall > 0:
                 out[f"{key}_per_s"] = round(self.counters[key] / wall, 1)
         return out
+
+
+# The spans recorded while a profiler recorded, in the order they opened.
+_RECORDED: list[dict] = []
+_ids = itertools.count(1)
+_open = threading.local()  # .stack: this thread's open span records
+_NOOP = contextlib.nullcontext()
+
+
+def _profiler():
+    """torch's autograd profiler module while a profiler records in this
+    process, else None. Where torch was never imported none can record,
+    and this module does not import it: modules that count stay light for
+    the stages' spawned workers."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    return prof if prof is not None and prof._is_profiler_enabled else None
+
+
+def _stack() -> list:
+    stack = getattr(_open, "stack", None)
+    if stack is None:
+        stack = _open.stack = []
+    return stack
+
+
+class _Span:
+    """One recording span: a profiler event and a record in ``_RECORDED``.
+
+    The event is a function-scope one (``_RecordFunctionFast``), not a
+    user annotation (``record_function``): the profiler mirrors a user
+    annotation onto the device's timeline over the kernels launched
+    inside it, where a reader of the trace would count it as device
+    work."""
+
+    __slots__ = ("rec", "rf")
+
+    def __init__(self, name: str, parent: dict | None, attrs: dict):
+        if parent is None:
+            stack = _stack()
+            parent = stack[-1] if stack else None
+        sid = next(_ids)
+        pipeline = sid if name == "pipeline" else (parent["pipeline"] if parent else None)
+        self.rec = dict(name=name, id=sid, parent=parent["id"] if parent else None,
+                        pipeline=pipeline, thread=threading.get_ident(), attrs=attrs,
+                        counts={}, start_ns=0, end_ns=None)
+        self.rf = sys.modules["torch"]._C._profiler._RecordFunctionFast("freddie." + name)
+
+    def __enter__(self) -> dict:
+        _stack().append(self.rec)
+        _RECORDED.append(self.rec)
+        self.rec["start_ns"] = time.time_ns()
+        self.rf.__enter__()
+        return self.rec
+
+    def __exit__(self, *exc) -> None:
+        self.rf.__exit__(*exc)
+        self.rec["end_ns"] = time.time_ns()
+        _stack().pop()
+
+
+def span(name: str, parent: dict | None = None, **attrs):
+    """A context manager that records the region as the span ``name``
+    while a torch profiler records in this process, and is a shared no-op
+    otherwise. Its parent is this thread's innermost open span, or
+    ``parent`` (``current()`` of the thread that handed the work over).
+    Entering yields the span's record, or None when not recording."""
+    if _profiler() is None:
+        return _NOOP
+    return _Span(name, parent, attrs)
+
+
+def current() -> dict | None:
+    """This thread's innermost open span's record (None when not
+    recording or none is open), to hand to ``span(parent=...)`` in a
+    pool thread."""
+    if _profiler() is None:
+        return None
+    stack = _stack()
+    return stack[-1] if stack else None
+
+
+def count(name: str, n: int = 1) -> None:
+    """Adds ``n`` to the counter ``name`` of this thread's innermost open
+    span while recording; nothing otherwise."""
+    if _profiler() is None:
+        return
+    stack = _stack()
+    if stack:
+        counts = stack[-1]["counts"]
+        counts[name] = counts.get(name, 0) + n
+
+
+def recorded() -> list[dict]:
+    """Every span recorded so far, in the order they opened: name, id,
+    parent (id or None), pipeline (the id of the enclosing ``pipeline``
+    span), thread, attrs, counts, start_ns and end_ns (Unix-epoch ns, the
+    profiler's clock; end_ns None while open)."""
+    return _RECORDED
+
+
+def clear_recorded() -> None:
+    _RECORDED.clear()
 
 
 class SolverLog:
@@ -179,6 +299,7 @@ def profile_trace(trace_dir: str | None):
     if trace_dir is None:
         yield
         return
+    import torch
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
